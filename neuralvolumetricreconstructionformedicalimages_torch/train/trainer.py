@@ -1,0 +1,375 @@
+"""Training loop: a per-step PyTorch loop + the reference-shaped orchestrator.
+
+Port of the JAX ``train/trainer.py``:
+
+- one optimizer step per sampled view batch (the JAX package scans a
+  jitted epoch; here a Python loop launches each step without waiting for
+  the device -- the losses of an epoch are read back once, at its end);
+- Adam(0.9, 0.999) with the StepLR schedule in optimizer-step units;
+- beam-masked MSE (or any ``train.loss`` of ``losses.get_loss_fn``);
+- checkpoints with ``torch.save`` (newest two kept) and resume;
+- eval at epoch 0, every ``i_eval`` epochs and at the end: one val view
+  rendered in full, the voxel grid queried, projection MSE/PSNR and 3D
+  PSNR/SSIM, slice mosaics and npy/png/stats.txt artifacts.
+
+The trainer runs on the card unless it is given ``device="cpu"``; without
+a card it raises.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import os.path as osp
+import re
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import with_defaults
+from ..data.dataset import gather_view_batch, load_dataset
+from ..losses import get_loss_fn
+from ..metrics import cast_to_image, get_mse, get_psnr, get_psnr_3d, get_ssim_3d
+from ..models import DensityField, get_encoder, get_network
+from ..render import query_field, render_image, render_rays
+from ..utils.logging import ExperimentLogger
+from ..utils.profiling import StepTimer
+from .optim import make_lr_schedule, make_optimizer, set_lr
+
+
+# --------------------------------------------------------------------------
+# Functional core
+# --------------------------------------------------------------------------
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; a missing card raises (no CPU fallback)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def pin_fp32() -> None:
+    """Full-precision float32 contractions (no TF32), as the JAX package's
+    ``precision="highest"``: reduced precision moves ray origins by
+    detector pixels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def build_model(cfg: Dict[str, Any], generator: Optional[torch.Generator] = None,
+                device="cpu") -> DensityField:
+    """Field (encoder + MLP) from the config schema; ``parallel`` supplies
+    the precision policy (``table_dtype``, ``compute_dtype``)."""
+    par = cfg.get("parallel", {})
+    enc_cfg = dict(cfg["encoder"])
+    enc_cfg.setdefault("table_dtype", par.get("table_dtype", "float32"))
+    enc = get_encoder(**enc_cfg)
+    net_cfg = dict(cfg["network"])
+    net_type = net_cfg.pop("net_type", "mlp")
+    net_cfg["skips"] = tuple(net_cfg.get("skips", (4,)))
+    net_cfg.setdefault("compute_dtype", par.get("compute_dtype", "float32"))
+    return get_network(net_type)(encoder=enc, generator=generator,
+                                 device=device, **net_cfg)
+
+
+def make_loss_fn(cfg: Dict[str, Any], use_mask: bool):
+    """``loss_fn(field, field_fine, batch, generator=None, t_rand=None)``:
+    render the batch's rays and reduce them to the training loss."""
+    render_cfg = cfg["render"]
+    n_samples = int(render_cfg["n_samples"])
+    n_fine = int(render_cfg["n_fine"])
+    perturb = bool(render_cfg["perturb"])
+    raw_noise_std = float(render_cfg["raw_noise_std"])
+    loss_calc = get_loss_fn(cfg["train"].get("loss", "mse"))
+
+    def loss_fn(field, field_fine, batch, generator=None, t_rand=None):
+        out = render_rays(
+            batch["rays"], field, n_samples=n_samples, n_fine=n_fine,
+            perturb=perturb, raw_noise_std=raw_noise_std, generator=generator,
+            field_fine=field_fine, t_rand=t_rand)
+        mask = batch["mask"] if use_mask else None
+        aux = {"tv_loss": out["tv_loss"], "tv_density": out["tv_density"]}
+        loss, _ = loss_calc(out["acc"], batch["projs"], mask, aux)
+        if n_fine > 0 and field_fine is not None:
+            # regularizers count once, on the fine loss
+            loss0, _ = loss_calc(out["acc0"], batch["projs"], mask)
+            loss = loss + loss0
+        return loss
+
+    return loss_fn
+
+
+# --------------------------------------------------------------------------
+# Orchestrator
+# --------------------------------------------------------------------------
+
+class Trainer:
+    """Reference-shaped trainer.  Subclass and override ``eval_step`` for
+    custom evals."""
+
+    def __init__(self, cfg: Dict[str, Any], workdir: Optional[str] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        pin_fp32()
+        cfg = with_defaults(cfg)
+        self.cfg = cfg
+        mesh = cfg.get("parallel", {}).get("mesh")
+        if mesh and int(np.prod(list(dict(mesh).values()))) > 1:
+            raise NotImplementedError(
+                "multi-device meshes are not ported yet (ROADMAP.md, Queue 1 "
+                "item 3: parallel/)")
+        self.n_fine = int(cfg["render"]["n_fine"])
+        self.epochs = int(cfg["train"]["epoch"])
+        self.i_eval = int(cfg["log"]["i_eval"])
+        self.i_save = int(cfg["log"]["i_save"])
+        self.n_rays = int(cfg["train"]["n_rays"])
+        self.n_batch = int(cfg["train"]["n_batch"])
+
+        self.expdir = workdir or osp.join(cfg["exp"]["expdir"], cfg["exp"]["expname"])
+        self.ckptdir = osp.join(self.expdir, "ckpt")
+        self.evaldir = osp.join(self.expdir, "eval")
+        os.makedirs(self.evaldir, exist_ok=True)
+
+        datadir = cfg["exp"]["datadir"]
+        ray_mode = str(cfg["train"].get("ray_mode", "auto"))
+        self.train_dset = load_dataset(datadir, "train", self.n_rays,
+                                       device=self.device, ray_mode=ray_mode)
+        self.eval_dset = (load_dataset(datadir, "val", self.n_rays,
+                                       device=self.device, ray_mode=ray_mode)
+                          if self.i_eval > 0 else None)
+        self.use_mask = bool(float(self.train_dset.mask.min()) < 1.0)
+        self.steps_per_epoch = max(1, self.train_dset.n_views // self.n_batch)
+
+        seed = int(cfg["train"].get("seed", 42))
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.field = build_model(cfg, self.generator, self.device)
+        self.field_fine = (build_model(cfg, self.generator, self.device)
+                           if self.n_fine > 0 else None)
+        params = list(self.field.parameters())
+        if self.field_fine is not None:
+            params += list(self.field_fine.parameters())
+        self.optimizer = make_optimizer(cfg, params)
+        self.schedule = make_lr_schedule(cfg, self.steps_per_epoch)
+        self._loss_fn = make_loss_fn(cfg, self.use_mask)
+        self._arrays = self.train_dset.arrays()
+
+        self.epoch_start = 0
+        self.global_step = 0
+        self.last_epoch = 0
+        self.losses: List[float] = []    # every step's loss, in order
+        self.step_ms: List[float] = []   # every step's time (device stream)
+        self.eval_metrics: Dict[int, Dict[str, float]] = {}  # epoch -> metrics
+
+        if cfg["train"]["resume"] and self._checkpoints():
+            self.restore()
+
+        self.logger = ExperimentLogger(self.expdir)
+        self.logger.add_text("parameters", json.dumps(_jsonable(cfg), indent=2))
+
+    # -- persistence -----------------------------------------------------
+    def _checkpoints(self) -> List[str]:
+        """Checkpoint files, oldest epoch first."""
+        paths = glob.glob(osp.join(self.ckptdir, "ckpt_*.pt"))
+        return sorted(paths, key=lambda p: int(re.findall(r"(\d+)\.pt$", p)[0]))
+
+    def save(self, epoch: int) -> None:
+        os.makedirs(self.ckptdir, exist_ok=True)
+        state = {
+            "epoch": epoch,
+            "field": self.field.state_dict(),
+            "field_fine": (self.field_fine.state_dict()
+                           if self.field_fine is not None else None),
+            "optimizer": self.optimizer.state_dict(),
+            "generator": self.generator.get_state(),
+        }
+        path = osp.join(self.ckptdir, f"ckpt_{epoch:06d}.pt")
+        torch.save(state, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        for old in self._checkpoints()[:-2]:   # keep the newest two
+            os.remove(old)
+
+    def restore(self) -> None:
+        path = self._checkpoints()[-1]
+        state = torch.load(path, map_location=self.device)
+        self.field.load_state_dict(state["field"])
+        if self.field_fine is not None:
+            self.field_fine.load_state_dict(state["field_fine"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"].cpu())
+        self.epoch_start = int(state["epoch"]) + 1
+        self.global_step = self.epoch_start * self.steps_per_epoch
+        print(f"[RESUME] from epoch {state['epoch']} ({path})")
+
+    # -- schedules -------------------------------------------------------
+    def _view_order(self, epoch: int) -> np.ndarray:
+        """[steps_per_epoch, n_batch] view indices, sequential (optionally
+        shuffled per epoch)."""
+        n = self.train_dset.n_views
+        order = np.arange(n)
+        if self.cfg["train"].get("shuffle_views"):
+            order = np.random.default_rng(epoch).permutation(n)
+        usable = self.steps_per_epoch * self.n_batch
+        return order[:usable].reshape(self.steps_per_epoch, self.n_batch)
+
+    def current_lr(self) -> float:
+        return float(self.schedule(self.global_step))
+
+    # -- loop ------------------------------------------------------------
+    def train_step(self, views) -> torch.Tensor:
+        """One optimizer step on ``n_rays`` pixels of each view in
+        ``views``; returns the (device) loss without waiting for it."""
+        ds = self.train_dset
+        parts = [gather_view_batch(self._arrays, int(v), self.n_rays,
+                                   self.generator, geo=ds.geo, near=ds.near,
+                                   far=ds.far) for v in views]
+        batch = {k: torch.cat([p[k] for p in parts])
+                 for k in ("rays", "projs", "mask")}
+        set_lr(self.optimizer, self.schedule(self.global_step))
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self._loss_fn(self.field, self.field_fine, batch, self.generator)
+        loss.backward()
+        self.optimizer.step()
+        self.global_step += 1
+        return loss.detach()
+
+    def start(self, deadline: Optional[float] = None) -> None:
+        """Main loop.  ``deadline``: optional absolute ``time.time()``;
+        training stops cleanly between epochs once it has passed."""
+        t_start = time.time()
+        for idx_epoch in range(self.epoch_start, self.epochs + 1):
+            if deadline is not None and time.time() > deadline:
+                print(f"[deadline] stopping before epoch {idx_epoch} "
+                      f"({time.time() - t_start:.0f}s elapsed)")
+                break
+            self.last_epoch = idx_epoch
+            if self.i_eval > 0 and (idx_epoch % self.i_eval == 0
+                                    or idx_epoch == self.epochs):
+                metrics = self.eval_step(self.global_step, idx_epoch)
+                self.eval_metrics[idx_epoch] = metrics
+                msg = ", ".join(f"{k}: {v:.4g}" for k, v in metrics.items())
+                print(f"[EVAL] epoch: {idx_epoch}/{self.epochs}, {msg}")
+
+            timer = StepTimer(self.device)
+            timer.tick()
+            step_losses = []
+            for views in self._view_order(idx_epoch):
+                step_losses.append(self.train_step(views))
+                timer.tick()
+            losses = torch.stack(step_losses).cpu().numpy()
+            ms = timer.step_ms()
+            self.losses.extend(float(x) for x in losses)
+            self.step_ms.extend(ms)
+            if not np.isfinite(losses).all():
+                print(f"! [Numerical Error] epoch {idx_epoch}: loss contains "
+                      f"nan/inf ({losses})")
+
+            self.logger.add_scalar("train/loss", float(losses.mean()), self.global_step)
+            self.logger.add_scalar("train/lr", self.current_lr(), self.global_step)
+            if idx_epoch % 25 == 0 or idx_epoch == self.epochs:
+                rate = self.n_rays * self.n_batch / (np.median(ms) / 1e3)
+                print(f"epoch={idx_epoch}/{self.epochs} loss={losses.mean():.4g} "
+                      f"lr={self.current_lr():.3g} rays/s={rate:,.0f} "
+                      f"elapsed={time.time() - t_start:.0f}s")
+
+            if (self.i_save > 0 and idx_epoch > 0
+                    and (idx_epoch % self.i_save == 0 or idx_epoch == self.epochs)):
+                print(f"[SAVE] epoch: {idx_epoch}/{self.epochs}, path: {self.ckptdir}")
+                self.save(idx_epoch)
+        self.logger.flush()
+        print(f"Training complete! See logs in {self.expdir}")
+
+    # -- eval ------------------------------------------------------------
+    def eval_step(self, global_step: int, idx_epoch: int) -> Dict[str, float]:
+        """Render one random val view in full and query the voxel grid;
+        projection MSE/PSNR and 3D PSNR/SSIM plus artifacts.  With
+        ``log.eval_mask`` the beam mask multiplies gt and prediction."""
+        dset = self.eval_dset
+        assert dset is not None
+        sel = int(np.random.default_rng(idx_epoch).integers(dset.n_views))
+        projs_gt = dset.projs[sel].cpu().numpy().astype(np.complex64)
+        H, W = projs_gt.shape
+        rays = dset.view_rays(sel)
+
+        # Prebuild the rolled gather tables once per eval, outside the tiles.
+        coarse = self.field.freeze()
+        fine = self.field_fine.freeze() if self.field_fine is not None else None
+        acc = render_image(
+            rays, self.field, n_samples=int(self.cfg["render"]["n_samples"]),
+            tile=min(4096, H * W), n_fine=self.n_fine, field_fine=self.field_fine,
+            enc_params=coarse, enc_params_fine=fine)
+        projs_pred = acc.cpu().numpy().reshape(H, W).astype(np.complex64)
+
+        if bool(self.cfg["log"].get("eval_mask", False)):
+            beam_mask = dset.mask[sel].cpu().numpy().astype(np.complex64)
+            projs_gt = projs_gt * beam_mask
+            projs_pred = projs_pred * beam_mask
+
+        metrics: Dict[str, float] = {
+            "proj_mse": get_mse(projs_pred, projs_gt),
+            "proj_psnr": get_psnr(projs_pred, projs_gt),
+        }
+        image_gt = dset.image.cpu().numpy() if dset.image is not None else None
+        image_pred = None
+        if image_gt is not None and dset.voxels is not None:
+            netchunk = int(self.cfg["render"].get("netchunk", 262144))
+            use_fine = self.n_fine > 0 and self.field_fine is not None
+            image_pred = query_field(
+                dset.voxels, self.field_fine if use_fine else self.field,
+                tile=netchunk, enc_params=fine if use_fine else coarse
+            )[..., 0].cpu().numpy()
+            metrics["psnr_3d"] = get_psnr_3d(image_pred, image_gt)
+            metrics["ssim_3d"] = get_ssim_3d(image_pred, image_gt)
+
+        self.logger.add_scalars(metrics, global_step, prefix="eval/")
+
+        eval_save_dir = osp.join(self.evaldir, f"epoch_{idx_epoch:05d}")
+        os.makedirs(eval_save_dir, exist_ok=True)
+        show_proj = np.concatenate([projs_gt, projs_pred], axis=1)
+        self.logger.add_image("eval/projection (left: gt, right: pred)",
+                              cast_to_image(show_proj), global_step)
+        if image_pred is not None:
+            show_slice = 5
+            show_step = max(1, image_gt.shape[-1] // show_slice)
+            rows = []
+            for i_show in range(show_slice):
+                k = min(i_show * show_step, image_gt.shape[-1] - 1)
+                rows.append(np.concatenate(
+                    [image_gt[..., k], image_pred[..., k]], axis=0))
+            show_density = np.concatenate(rows, axis=1)
+            self.logger.add_image("eval/density (row1: gt, row2: pred)",
+                                  cast_to_image(show_density), global_step)
+            np.save(osp.join(eval_save_dir, "image_pred.npy"), image_pred)
+            np.save(osp.join(eval_save_dir, "image_gt.npy"), image_gt)
+            _save_png(osp.join(eval_save_dir, "slice_show_row1_gt_row2_pred.png"),
+                      cast_to_image(show_density))
+        _save_png(osp.join(eval_save_dir, "proj_show_left_gt_right_pred.png"),
+                  cast_to_image(show_proj))
+        with open(osp.join(eval_save_dir, "stats.txt"), "w") as f:
+            for key, value in metrics.items():
+                f.write("%s: %f\n" % (key, value))
+        return metrics
+
+
+def _save_png(path: str, img01: np.ndarray) -> None:
+    """Write a PNG when ``imageio`` is installed (skipped otherwise)."""
+    try:
+        import imageio.v2 as iio
+    except ImportError:
+        return
+    iio.imwrite(path, (np.clip(img01[..., 0], 0, 1) * 255).astype(np.uint8))
+
+
+def _jsonable(obj):
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
