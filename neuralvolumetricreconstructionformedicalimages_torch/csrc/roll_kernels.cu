@@ -7,13 +7,15 @@
 //   roll_broadcast_fm:  R[l, k*C+c, s] = T[l, (s + off[l,k]) % S, c]
 //                       (cast to the table dtype, bf16 on the main path)
 //   unroll_reduce_fm:   out[l, j, c] = sum_k G[l, k*C+c, (j - off[l,k]) % S]
-//                       (f32, summed in k order 0..K-1)
+//                       (G f32 or bf16, each value widened to f32, summed
+//                       in k order 0..K-1 with __fadd_rn; f32 out)
 //
 // What bounds them on the card: bytes.  Both are pure data movement with
 // no reuse beyond the K-fold read of the canonical side.  At the main-path
 // shape (L=16, K=8, C=2, S=2^19) the build reads 67.1 MB and writes
 // 268.4 MB of bf16 (~0.100 ms at 3.35 TB/s); the reduce reads the 541.2 MB
-// wrap-extended f32 gradient and writes 67.1 MB (~0.182 ms).
+// wrap-extended f32 gradient (270.6 MB in bf16, the rolled backward's
+// case) and writes 67.1 MB (~0.182 ms, ~0.101 ms in bf16).
 //
 // Design: one thread per (level, corner, column) for the build and one per
 // (level, column) for the reduce, in a grid-stride loop.  Neighbouring
@@ -60,7 +62,15 @@ __global__ void roll_broadcast_kernel(const float* __restrict__ table,
   }
 }
 
-__global__ void unroll_reduce_kernel(const float* __restrict__ grad,
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// InT is float or __nv_bfloat16 (the rolled backward's bf16 gradient);
+// every value is widened to f32 before the sum, so the result is f32.
+template <typename InT>
+__global__ void unroll_reduce_kernel(const InT* __restrict__ grad,
                                      const int* __restrict__ offs,
                                      float* __restrict__ out, int L, int K,
                                      int C, long long S, long long Se) {
@@ -74,7 +84,8 @@ __global__ void unroll_reduce_kernel(const float* __restrict__ grad,
       for (int k = 0; k < K; ++k) {
         long long col = j - offs[l * K + k];
         if (col < 0) col += S;
-        const float v = grad[((long long)l * K * C + k * C + c) * Se + col];
+        const float v =
+            to_f32(grad[((long long)l * K * C + k * C + c) * Se + col]);
         acc = (k == 0) ? v : __fadd_rn(acc, v);
       }
       out[((long long)l * S + j) * C + c] = acc;
@@ -114,15 +125,21 @@ int nvr_roll_broadcast_fm(const void* table, const void* offs, void* out,
   return (int)cudaGetLastError();
 }
 
-// grad [L, K*C, Se] f32 with Se >= S (columns >= S are never read);
-// offs [L, K] int32 in [0, S); out [L, S, C] f32.
-int nvr_unroll_reduce_fm(const void* grad, const void* offs, void* out, int L,
-                         int K, int C, long long S, long long Se,
-                         void* stream) {
+// grad [L, K*C, Se] f32 or bf16 (grad_bf16 != 0) with Se >= S (columns
+// >= S are never read); offs [L, K] int32 in [0, S); out [L, S, C] f32.
+int nvr_unroll_reduce_fm(const void* grad, const void* offs, void* out,
+                         int grad_bf16, int L, int K, int C, long long S,
+                         long long Se, void* stream) {
   const long long n = (long long)L * S;
+  cudaStream_t st = (cudaStream_t)stream;
   if (n == 0) return (int)cudaGetLastError();
-  unroll_reduce_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)grad, (const int*)offs, (float*)out, L, K, C, S, Se);
+  if (grad_bf16)
+    unroll_reduce_kernel<__nv_bfloat16><<<grid_for(n), kThreads, 0, st>>>(
+        (const __nv_bfloat16*)grad, (const int*)offs, (float*)out, L, K, C, S,
+        Se);
+  else
+    unroll_reduce_kernel<float><<<grid_for(n), kThreads, 0, st>>>(
+        (const float*)grad, (const int*)offs, (float*)out, L, K, C, S, Se);
   return (int)cudaGetLastError();
 }
 

@@ -5,11 +5,9 @@ Port of the JAX ``models/encoders.py``: immutable specs with
 features``; the parameters themselves live in the ``nn.Module`` of the
 field (``models/density_field.py``).
 
-The hash path dispatches like the JAX package: positions in
-[-bound, bound] map to [0, 1] and are clamped; tables whose size is a
-multiple of 2048 take the sorted encoder (the CUDA kernels on the card),
-smaller ones the plain oracle.  Paths not ported yet raise
-``NotImplementedError`` rather than run other numerics.
+The hash path dispatches exactly like the JAX package (see
+:meth:`HashEncoderSpec.apply`): positions in [-bound, bound] map to [0, 1]
+and are clamped; every combination of the knobs has a path.
 """
 
 from __future__ import annotations
@@ -22,11 +20,13 @@ import torch
 
 from ..ops.coherent_hash import (
     build_rolled_table,
+    coherent_encode,
     coherent_encode_prebuilt,
     coherent_encode_reference,
+    coherent_encode_takevjp,
 )
-from ..ops.hash_encoding import HashGridSpec
-from ..ops.span_gather import _NOT_PORTED, sorted_encode
+from ..ops.hash_encoding import HashGridSpec, hash_encode, hash_encode_fast
+from ..ops.span_gather import sorted_encode
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,13 +52,17 @@ class EncoderSpec:
 class HashEncoderSpec(EncoderSpec):
     """Hash-grid encoder (same knobs as the JAX spec).
 
-    - ``hash_variant``: "coherent" (ported); "xor" raises.
-    - ``fast``: the sorted kernel path; ``False`` is the plain oracle.
-    - ``forward``: "sorted" (ported); "rolled" raises.
-    - ``backward``: "bucket" (ported); "take" raises.
+    - ``hash_variant``: "coherent" (linear hash, the fast paths) or "xor"
+      (the reference's XOR-prime hash, bit-exact parity mode).
+    - ``fast``: the kernel paths; ``False`` is the plain oracle.
+    - ``forward``: "sorted" (span-gather kernel, no position gradients) or
+      "rolled" (rolled-table wide-row gather).
+    - ``backward``: "bucket" (sort + bucket kernel) or "take" (autograd
+      through the rolled gather, no kernel).
     - ``table_dtype``: dtype of the rolled gather table.
-    - ``pack_sort``: 11/11/10-bit fracs and bf16 feature pairs.
-    - ``input_grads``: position gradients; not ported, raises.
+    - ``pack_sort``: 11/11/10-bit fracs and bf16 feature pairs (sorted).
+    - ``input_grads``: route the coherent fast path through the rolled
+      forward, the fast path that gives position gradients.
     """
 
     grid: HashGridSpec = HashGridSpec()
@@ -106,24 +110,47 @@ class HashEncoderSpec(EncoderSpec):
         return params
 
     def apply(self, params, x: torch.Tensor, bound: float) -> torch.Tensor:
+        """Encode world positions [..., D] -> [..., L*C].
+
+        Paths, in the JAX package's order:
+
+        1. XOR: ``hash_encode_fast`` (bucket kernel at D=0) when ``fast``,
+           ``backward != "take"`` and the table size is a multiple of
+           2048; else the plain ``hash_encode``.
+        2. Coherent with frozen params (``freeze``): the prebuilt table.
+        3. ``fast`` + ``take``: ``coherent_encode_takevjp``, any size.
+        4. ``fast`` + ``forward: sorted`` without ``input_grads``, size a
+           multiple of 2048: ``sorted_encode`` (the main path).
+        5. ``fast``, size a multiple of 2048: ``coherent_encode``.
+        6. Otherwise the oracle ``coherent_encode_reference``.
+        """
         x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
         prefix = x01.shape[:-1]
         x01 = x01.reshape(-1, self.grid.input_dim)
-        if self.hash_variant != "coherent":
-            raise NotImplementedError(
-                f"hash_variant {self.hash_variant!r} " + _NOT_PORTED)
-        if "rolled" in params:  # frozen eval params (see ``freeze``)
-            out = coherent_encode_prebuilt(x01, params["rolled"], self.grid)
-        elif self.fast and self.backward == "take":
-            raise NotImplementedError("backward 'take' " + _NOT_PORTED)
-        elif self.fast and self.grid.table_size % 2048 == 0:
-            if self.forward != "sorted" or self.input_grads:
-                raise NotImplementedError(
-                    f"forward {self.forward!r} / input_grads " + _NOT_PORTED)
-            out = sorted_encode(x01, params["table"], self.grid,
-                                self._table_dtype, self.pack_sort)
+        table = params.get("table")
+        tiles = self.grid.table_size % 2048 == 0
+        if self.hash_variant == "xor":
+            if self.fast and self.backward != "take" and tiles:
+                out = hash_encode_fast(x01, table, self.grid)
+            else:
+                out = hash_encode(x01, table, self.grid)
+        elif self.hash_variant == "coherent":
+            if "rolled" in params:  # frozen eval params (see ``freeze``)
+                out = coherent_encode_prebuilt(x01, params["rolled"], self.grid)
+            elif self.fast and self.backward == "take":
+                out = coherent_encode_takevjp(x01, table, self.grid,
+                                              self._table_dtype)
+            elif (self.fast and self.forward == "sorted"
+                  and not self.input_grads and tiles):
+                out = sorted_encode(x01, table, self.grid,
+                                    self._table_dtype, self.pack_sort)
+            elif self.fast and tiles:
+                out = coherent_encode(x01, table, self.grid, self._table_dtype)
+            else:
+                out = coherent_encode_reference(x01, table, self.grid)
         else:
-            out = coherent_encode_reference(x01, params["table"], self.grid)
+            raise NotImplementedError(
+                f"Unknown hash_variant {self.hash_variant!r}")
         return out.reshape(*prefix, self.output_dim)
 
 

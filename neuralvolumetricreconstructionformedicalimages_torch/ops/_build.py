@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("roll_kernels", "span_gather", "bucket_matmul")
+SOURCES = ("roll_kernels", "span_gather", "bucket_matmul", "scatter_level")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 

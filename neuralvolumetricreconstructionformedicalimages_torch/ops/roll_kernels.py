@@ -125,9 +125,10 @@ def unroll_reduce_fm(grad_ext: torch.Tensor, spec: HashGridSpec,
     ``out[l, j, c] = sum_k grad[l, k*C+c, (j - off[l,k]) % S]``.
 
     Args:
-      grad_ext: [L, K*C, S + _PAD] f32 -- the rolled gradient extended with
-        its own first ``_PAD`` columns, as ``bucket_grad_matmul(...,
-        extend_cols=_PAD)`` emits it.
+      grad_ext: [L, K*C, S + _PAD] f32 or bf16 -- the rolled gradient
+        extended with its own first ``_PAD`` columns, as
+        ``bucket_grad_matmul(..., extend_cols=_PAD)`` emits it.  bf16 is
+        widened to f32 value by value; the sum is f32 either way.
     """
     if _build.is_cpu(grad_ext):
         return unroll_reduce_fm_plain(grad_ext, spec, n_channels)
@@ -135,7 +136,8 @@ def unroll_reduce_fm(grad_ext: torch.Tensor, spec: HashGridSpec,
     C = int(n_channels)
     K = F // C
     S = Se - _PAD
-    _build.require(grad_ext.dtype == torch.float32, "grad must be float32")
+    _build.require(grad_ext.dtype in (torch.float32, torch.bfloat16),
+                   f"grad must be float32 or bfloat16, got {grad_ext.dtype}")
     _build.require(grad_ext.is_contiguous(), "grad must be contiguous")
     _build.require(K == 1 << spec.input_dim and K * C == F
                    and L == spec.num_levels and S == spec.table_size,
@@ -143,9 +145,9 @@ def unroll_reduce_fm(grad_ext: torch.Tensor, spec: HashGridSpec,
     out = torch.empty((L, S, C), dtype=torch.float32, device=grad_ext.device)
     _build.LAUNCHES["unroll_reduce_fm"] += 1
     _build.launch("roll_kernels", "nvr_unroll_reduce_fm",
-                  [_build.VOIDP] * 3 + [_build.INT] * 3
+                  [_build.VOIDP] * 3 + [_build.INT] * 4
                   + [_build.I64, _build.I64, _build.VOIDP],
                   grad_ext.device, grad_ext.data_ptr(),
                   _offsets_on(spec, grad_ext.device).data_ptr(), out.data_ptr(),
-                  L, K, C, S, Se)
+                  int(grad_ext.dtype == torch.bfloat16), L, K, C, S, Se)
     return out

@@ -263,11 +263,6 @@ def sorted_encode_features(base_t: torch.Tensor, frac_t: torch.Tensor,
     return _encode_sorted(base_t, frac_t, rolled_fm, input_dim, pack)[0]
 
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1 item 1: the rolled "
-               "forward, the 'take' backward, analytic input gradients and "
-               "the XOR variant)")
-
-
 class _SortedEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x01, table, spec, table_dtype, pack):
@@ -305,10 +300,11 @@ def sorted_encode(x01: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
     """Coherent hash encode, sorted span-gather forward: [B, D] -> [B, L*C].
 
     Differentiable wrt ``table`` only (bucket + unroll backward).  Raises
-    if ``x01`` requires grad: this path computes no position gradients.
+    if ``x01`` requires grad: this path computes no position gradients
+    (the JAX package returns zeros for them silently).
     """
     if torch.is_grad_enabled() and x01.requires_grad:
         raise NotImplementedError(
-            "sorted_encode gives no gradient wrt positions; the "
-            "input-gradient encoder path " + _NOT_PORTED)
+            "sorted_encode gives no gradient wrt positions; set the encoder's "
+            "input_grads: True to take the coherent_encode path, which does")
     return _SortedEncode.apply(x01, table, spec, table_dtype, pack)

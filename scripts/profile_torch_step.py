@@ -19,6 +19,10 @@ table), runs warm-up steps, then profiles ``--steps`` steps with
 Run from the repository root on a machine with a CUDA card:
 
     python3 scripts/profile_torch_step.py [--config ...] [--steps 20] [--out DIR]
+        [--encoder hash_variant=xor ...]
+
+``--encoder KEY=VALUE`` (repeatable) overrides a key of the config's
+``encoder`` section, to profile another encoder path.
 
 ``--out`` also writes the chrome trace there.  Imports nothing of JAX.
 """
@@ -30,6 +34,7 @@ import sys
 import time
 
 import torch
+import yaml
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENCODER_KERNELS = ("roll_broadcast_kernel", "unroll_reduce_kernel",
@@ -43,6 +48,8 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--encoder", action="append", default=[], metavar="KEY=VALUE",
+                    help="override an encoder config key (repeatable)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device available", file=sys.stderr)
@@ -54,6 +61,9 @@ def main(argv=None) -> int:
 
     cfg = load_config(args.config)
     cfg["log"].update(i_eval=0, i_save=0)
+    for item in args.encoder:
+        key, _, value = item.partition("=")
+        cfg["encoder"][key] = yaml.safe_load(value)
     tr = Trainer(cfg, workdir=os.path.join("logs", "profile_torch_step"), device="cuda")
     views = tr._view_order(0).reshape(-1, tr.n_batch)
     for i in range(args.warmup):
@@ -86,7 +96,8 @@ def main(argv=None) -> int:
     dev_ms = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"config: {args.config}, {args.steps} profiled steps after {args.warmup} warm-up")
+    print(f"config: {args.config} {' '.join(args.encoder)}, {args.steps} profiled "
+          f"steps after {args.warmup} warm-up")
     print(f"wall per step: {wall_ms:.3f} ms unprofiled, {prof_wall_ms:.3f} ms profiled; "
           f"device kernel time per step: {dev_ms:.3f} ms; "
           f"device idle share: {1 - dev_ms / wall_ms:.3f}; kernel launches per step: "
@@ -98,7 +109,8 @@ def main(argv=None) -> int:
     for name, ms, n in rows[: args.top]:
         mark = " *" if any(k in name for k in ENCODER_KERNELS) else ""
         print(f"{ms:14.4f} {n:10.1f}  {name[:110]}{mark}")
-    summary = {"config": args.config, "steps": args.steps, "wall_ms_per_step": wall_ms,
+    summary = {"config": args.config, "encoder": args.encoder, "steps": args.steps,
+               "wall_ms_per_step": wall_ms,
                "profiled_wall_ms_per_step": prof_wall_ms,
                "device_ms_per_step": dev_ms, "device_idle_share": 1 - dev_ms / wall_ms,
                "launches_per_step": launches, "encoder_kernels_ms_per_step": enc_ms,

@@ -8,10 +8,12 @@ a machine with only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: rolls are copies (bit-equal); the span gather and the unroll
-reduce take the same f32 operations in the same order as the plain
-versions, up to the plain versions' own kernels (atol 1e-5); the bucket
-sum is bitwise reproducible run to run, and equals the plain version bit
-for bit (both sum every run in stream order from the same f32 products).
+reduce (f32 or bf16 input) take the same f32 operations in the same order
+as the plain versions, up to the plain versions' own kernels (atol 1e-5);
+the bucket sum is bitwise reproducible run to run, and equals the plain
+version bit for bit (both sum every run in stream order from the same f32
+products); the scatter's atomics add in no fixed order (rtol/atol 1e-5 on
+normal payloads, bit-equal on integer-valued ones, which sum exactly).
 """
 
 import numpy as np
@@ -21,12 +23,16 @@ import torch
 from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
 from neuralvolumetricreconstructionformedicalimages_torch.ops import bucket_matmul as bm
 from neuralvolumetricreconstructionformedicalimages_torch.ops import roll_kernels as rk
+from neuralvolumetricreconstructionformedicalimages_torch.ops import scatter_level as sl
 from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
 from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
     base_and_frac_t,
+    coherent_encode,
+    coherent_encode_takevjp,
 )
 from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding import (
     HashGridSpec,
+    hash_encode_fast,
 )
 
 pytestmark = pytest.mark.cuda
@@ -73,6 +79,72 @@ def test_unroll_reduce_kernel(dev):
     out = rk.unroll_reduce_fm(ext, SPEC, C)
     torch.testing.assert_close(out, rk.unroll_reduce_fm_plain(ext, SPEC, C),
                                atol=1e-5, rtol=0)
+
+
+def test_unroll_reduce_kernel_bf16_input(dev):
+    """The rolled backward hands the unroll a bf16 gradient."""
+    g = torch.randn((L, 8 * C, S), generator=_gen(dev, 11), device=dev)
+    ext = rk.wrap_extend(g.to(torch.bfloat16), rk._PAD)
+    n0 = _build.LAUNCHES["unroll_reduce_fm"]
+    out = rk.unroll_reduce_fm(ext, SPEC, C)
+    assert _build.LAUNCHES["unroll_reduce_fm"] == n0 + 1
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, rk.unroll_reduce_fm_plain(ext, SPEC, C),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("C_", [1, 2, 4])
+@pytest.mark.parametrize("payload", ["normal", "integer"])
+def test_scatter_level_kernel(dev, payload, C_):
+    g = _gen(dev, 12)
+    N, S_ = 1 << 16, 1 << 12
+    idx = torch.randint(0, S_, (N,), generator=g, device=dev, dtype=torch.int32)
+    if payload == "normal":
+        pay = torch.randn((N, C_), generator=g, device=dev)
+    else:
+        pay = torch.randint(-50, 50, (N, C_), generator=g, device=dev).float()
+    n0 = _build.LAUNCHES["scatter_level"]
+    out = sl.scatter_level(idx, pay, S_)
+    assert _build.LAUNCHES["scatter_level"] == n0 + 1
+    ref = sl.scatter_level_plain(idx, pay, S_)
+    if payload == "normal":
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(out, ref)
+        assert torch.equal(out.cpu(), sl.scatter_level(idx.cpu(), pay.cpu(), S_))
+
+
+def test_scatter_level_kernel_long_integer_column(dev):
+    """700 integer-valued updates into one row sum exactly in any order."""
+    g = _gen(dev, 13)
+    idx = torch.randint(0, 4096, (5000,), generator=g, device=dev, dtype=torch.int32)
+    idx[:700] = 77
+    pay = torch.randint(-9, 9, (5000, 2), generator=g, device=dev).float()
+    assert torch.equal(sl.scatter_level(idx, pay, 4096),
+                       sl.scatter_level_plain(idx, pay, 4096))
+
+
+@pytest.mark.parametrize("path", ["coherent", "xor", "take"])
+def test_encode_paths_on_card_match_cpu(dev, path):
+    """The rolled, XOR and take encoders on the card vs on the CPU
+    (positions and table gradients)."""
+    fn = {"coherent": lambda x, t: coherent_encode(x, t, SPEC, torch.bfloat16),
+          "xor": lambda x, t: hash_encode_fast(x, t, SPEC),
+          "take": lambda x, t: coherent_encode_takevjp(x, t, SPEC)}[path]
+    x = torch.rand((1500, 3), generator=_gen(dev, 14), device=dev)
+    table = torch.randn((L, S, C), generator=_gen(dev, 15), device=dev)
+    ct = torch.randn((1500, SPEC.output_dim), generator=_gen(dev, 16), device=dev)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        xx = x.to(d).clone().requires_grad_(True)
+        t = table.to(d).clone().requires_grad_(True)
+        o = fn(xx, t)
+        (o * ct.to(d)).sum().backward()
+        res.append((o.detach().cpu(), xx.grad.cpu(), t.grad.cpu()))
+    (o0, gx0, gt0), (o1, gx1, gt1) = res
+    torch.testing.assert_close(o0, o1, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(gt0, gt1, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(gx0, gx1, atol=2e-4, rtol=2e-4)
 
 
 @pytest.mark.parametrize("dup", [False, True], ids=["random", "duplicate_heavy"])

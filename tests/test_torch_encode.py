@@ -3,7 +3,9 @@ integer sort -> span gather -> un-permute; backward sort -> bucket ->
 unroll) and the ``HashEncoderSpec`` dispatch, against the JAX package's
 ``sorted_encode`` (Pallas kernels in interpret mode) and its autograd
 oracle, at B = 700, B = 1500 and for 700 identical points.  The packed
-main-path payloads are held in ``test_torch_encode_packed.py``.
+main-path payloads are held in ``test_torch_encode_packed.py``; the other
+encoder paths and the dispatch over every knob in
+``test_torch_encode_paths.py``.
 
 Tolerances, with their reasons:
 
@@ -116,11 +118,3 @@ def test_encoder_spec_dispatch():
             jnp.asarray(table))
         t = tenc.apply({"table": torch.as_tensor(table)}, torch.as_tensor(x), 0.2)
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5)
-
-
-@pytest.mark.parametrize("kw", [dict(forward="rolled"), dict(backward="take"),
-                                dict(hash_variant="xor"), dict(input_grads=True)])
-def test_unported_encoder_paths_raise(kw):
-    enc = TEnc(grid=TSpec(**KW), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc.apply({"table": torch.as_tensor(TABLE)}, torch.zeros(8, 3), 0.2)

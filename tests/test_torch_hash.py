@@ -178,12 +178,14 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No source file of the port (nor chip_smoke.py) has an import of jax
-    or of the JAX package."""
+    """No source file of the port (nor chip_smoke.py, nor the port's
+    scripts) has an import of jax or of the JAX package."""
     bad = re.compile(r"^\s*(import|from)\s+(jax|optax|"
                      r"neuralvolumetricreconstructionformedicalimages_tpu)\b",
                      re.MULTILINE)
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "microbench_encoder_torch.py"),
+             os.path.join(REPO, "scripts", "profile_torch_step.py")]
     for dirpath, _, files in os.walk(os.path.join(REPO, PKG)):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     for path in paths:

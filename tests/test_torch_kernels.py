@@ -88,6 +88,18 @@ def test_unroll_reduce_matches():
         _f32(jsg.unroll_reduce_reference(jnp.asarray(G), JS)), atol=1e-5)
 
 
+def test_unroll_reduce_bf16_input_matches():
+    """A bf16 rolled gradient (the rolled backward's): each value widened
+    to f32, then the same f32 sum as JAX's Pallas unroll (atol 1e-5)."""
+    G = np.random.default_rng(8).normal(size=(L, 8 * C, S)).astype(np.float32)
+    jg = jrk.wrap_extend(jnp.asarray(G).astype(jnp.bfloat16), jrk._PAD)
+    j = jax.jit(lambda g: jrk.unroll_reduce_fm(g, JS, C))(jg)
+    ext = trk.wrap_extend(torch.as_tensor(G).to(torch.bfloat16), trk._PAD)
+    t = trk.unroll_reduce_fm(ext, TS, C)
+    assert t.dtype == torch.float32 and t.shape == (L, S, C)
+    np.testing.assert_allclose(t.numpy(), _f32(j), atol=1e-5)
+
+
 @pytest.mark.parametrize("dup", [False, True], ids=["random", "duplicate_heavy"])
 def test_bucket_matches_oracle_and_pallas(dup):
     keys, frac, grads = _stream(2, 3000, dup=dup)
@@ -145,7 +157,7 @@ def test_span_gather_matches_pallas(dtype, packed):
 def test_sorted_encode_refuses_position_grads():
     x = torch.rand(64, 3, requires_grad=True)
     table = torch.as_tensor(_table(9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="input_grads: True"):
         tsg.sorted_encode(x, table, TS)
 
 
