@@ -13,18 +13,32 @@
 // What bounds them on the card: bytes.  Both are pure data movement with
 // no reuse beyond the K-fold read of the canonical side.  At the main-path
 // shape (L=16, K=8, C=2, S=2^19) the build reads 67.1 MB and writes
-// 268.4 MB of bf16 (~0.100 ms at 3.35 TB/s); the reduce reads the 541.2 MB
-// wrap-extended f32 gradient (270.6 MB in bf16, the rolled backward's
-// case) and writes 67.1 MB (~0.182 ms, ~0.101 ms in bf16).
+// 268.4 MB of bf16 (~0.100 ms at 3.35 TB/s); the reduce reads the S
+// columns of the f32 gradient, 536.9 MB (268.4 MB in bf16, the rolled
+// backward's case), and writes 67.1 MB (~0.180 ms, ~0.100 ms in bf16).
 //
-// Design: one thread per (level, corner, column) for the build and one per
-// (level, column) for the reduce, in a grid-stride loop.  Neighbouring
-// threads take neighbouring columns, so every store (build) and every load
-// (reduce) of a warp is one contiguous run; the shifted side is contiguous
-// too except where the roll wraps.  The TPU kernel's 128-aligned windows
-// and wrap-extension (_PAD) exist for DMA alignment and are not carried
-// over: the modulo is taken per element, so any S works.  The build rounds
-// with __float2bfloat16_rn (round to nearest even), as a PyTorch cast does.
+// Build design: one block row per (level, corner), blockIdx.y = l*K + k,
+// so the offset is read once per thread and no index is divided per
+// element; the K corners of a level run back to back, and the level's
+// 4 MB canonical rows stay in L2 for all K of them.  C = 2, the width of
+// every configuration, has its own kernel: a thread takes 4 column pairs
+// (2q, 2q + 1), each 512 columns from the last, reads a pair's two
+// canonical rows as one float4 (two float2 when the offset is odd) and
+// stores each channel's pair as one 4-byte bf16x2 (8-byte float2 in
+// f32).  A warp then reads 512 contiguous bytes and stores 128 (bf16)
+// contiguous bytes per row, where one thread per element read with
+// a stride of C and took a 64-bit % and two / per element.  Only the one
+// pair whose second column passes S wraps per element.  Other C, odd S
+// and unaligned pointers take the scalar kernel, one thread per column.
+// Both round with __float2bfloat16_rn (round to nearest even), as a
+// PyTorch cast does, so the build is bit-equal to the plain version.
+//
+// Reduce design: one thread per (level, column) in a grid-stride loop.
+// Neighbouring threads take neighbouring columns, so every load of a warp
+// is one contiguous run except where the roll wraps.  The TPU kernel's
+// 128-aligned windows and wrap-extension (_PAD) exist for DMA alignment
+// and are not carried over: the modulo is taken per element, so any S
+// works.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,22 +57,90 @@ __device__ __forceinline__ __nv_bfloat16 cast_out<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+constexpr int kPairs = 4;                      // column pairs per thread
+constexpr int kPairCols = 2 * kPairs * kThreads;  // columns per block
+
+// Two columns' values of one channel row, stored as one vector.
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) =
+      __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+}
+
+// C = 2, S even, table 16-byte and out 2-element aligned.  blockIdx.y is
+// l*K + k; the thread's pairs are q = blockIdx.x*kPairs*kThreads +
+// r*kThreads + threadIdx.x, columns 2q and 2q + 1.
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads)
+    roll_broadcast_kernel_c2(const float* __restrict__ table,
+                             const int* __restrict__ offs,
+                             OutT* __restrict__ out, int K, long long S) {
+  const int lk = blockIdx.y;
+  const long long off = offs[lk];
+  const float2* __restrict__ tl =
+      reinterpret_cast<const float2*>(table) + (long long)(lk / K) * S;
+  OutT* __restrict__ o0 = out + (long long)lk * 2 * S;  // row (l, 2k)
+  OutT* __restrict__ o1 = o0 + S;                       // row (l, 2k + 1)
+  const long long q0 = (long long)blockIdx.x * kPairs * kThreads + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kPairs; ++r) {
+    const long long s = 2 * (q0 + (long long)r * kThreads);
+    if (s >= S) break;
+    long long src = s + off;
+    if (src >= S) src -= S;
+    float2 a, b;  // columns s and s + 1: (channel 0, channel 1)
+    if (src + 1 == S) {  // the pair that crosses the wrap
+      a = tl[src];
+      b = tl[0];
+    } else if ((src & 1) == 0) {  // the same parity for the whole block
+      const float4 v = *reinterpret_cast<const float4*>(tl + src);
+      a = make_float2(v.x, v.y);
+      b = make_float2(v.z, v.w);
+    } else {
+      a = tl[src];
+      b = tl[src + 1];
+    }
+    store_pair(o0 + s, a.x, b.x);
+    store_pair(o1 + s, a.y, b.y);
+  }
+}
+
+// Any C and S: one thread per column of one (level, corner) row block.
 template <typename OutT>
 __global__ void roll_broadcast_kernel(const float* __restrict__ table,
                                       const int* __restrict__ offs,
-                                      OutT* __restrict__ out, int L, int K,
-                                      int C, long long S) {
-  const long long n = (long long)L * K * S;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < n; idx += (long long)gridDim.x * blockDim.x) {
-    const long long s = idx % S;
-    const long long lk = idx / S;  // l * K + k
-    const int l = (int)(lk / K);
-    long long src = s + offs[lk];
+                                      OutT* __restrict__ out, int K, int C,
+                                      long long S) {
+  const int lk = blockIdx.y;
+  const long long off = offs[lk];
+  const float* __restrict__ tl = table + (long long)(lk / K) * S * C;
+  OutT* __restrict__ o = out + (long long)lk * C * S;
+  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < S;
+       s += (long long)gridDim.x * blockDim.x) {
+    long long src = s + off;
     if (src >= S) src -= S;
-    const float* row = table + ((long long)l * S + src) * C;
-    OutT* o = out + lk * C * S + s;  // row (l, k*C + 0), column s
-    for (int c = 0; c < C; ++c) o[c * S] = cast_out<OutT>(row[c]);
+    for (int c = 0; c < C; ++c)
+      o[(long long)c * S + s] = cast_out<OutT>(tl[src * C + c]);
+  }
+}
+
+template <typename OutT>
+void launch_roll(const void* table, const void* offs, void* out, int L, int K,
+                 int C, long long S, cudaStream_t st) {
+  const bool pairs = C == 2 && S % 2 == 0 && (uintptr_t)table % 16 == 0 &&
+                     (uintptr_t)out % (2 * sizeof(OutT)) == 0;
+  if (pairs) {
+    const dim3 grid((unsigned)((S + kPairCols - 1) / kPairCols), (unsigned)(L * K));
+    roll_broadcast_kernel_c2<OutT><<<grid, kThreads, 0, st>>>(
+        (const float*)table, (const int*)offs, (OutT*)out, K, S);
+  } else {
+    long long bx = (S + kThreads - 1) / kThreads;
+    if (bx > 4096) bx = 4096;  // grid-stride beyond
+    const dim3 grid((unsigned)bx, (unsigned)(L * K));
+    roll_broadcast_kernel<OutT><<<grid, kThreads, 0, st>>>(
+        (const float*)table, (const int*)offs, (OutT*)out, K, C, S);
   }
 }
 
@@ -109,19 +191,17 @@ const char* nvr_error_string(int e) {
 }
 
 // table [L, S, C] f32; offs [L, K] int32 in [0, S); out [L, K*C, S] f32 or
-// bf16 (out_bf16 != 0).
+// bf16 (out_bf16 != 0).  L*K below 2^16.
 int nvr_roll_broadcast_fm(const void* table, const void* offs, void* out,
                           int out_bf16, int L, int K, int C, long long S,
                           void* stream) {
-  const long long n = (long long)L * K * S;
   cudaStream_t st = (cudaStream_t)stream;
-  if (n == 0) return (int)cudaGetLastError();
+  if ((long long)L * K * S == 0) return (int)cudaGetLastError();
+  if ((long long)L * K > 65535) return (int)cudaErrorInvalidValue;
   if (out_bf16)
-    roll_broadcast_kernel<__nv_bfloat16><<<grid_for(n), kThreads, 0, st>>>(
-        (const float*)table, (const int*)offs, (__nv_bfloat16*)out, L, K, C, S);
+    launch_roll<__nv_bfloat16>(table, offs, out, L, K, C, S, st);
   else
-    roll_broadcast_kernel<float><<<grid_for(n), kThreads, 0, st>>>(
-        (const float*)table, (const int*)offs, (float*)out, L, K, C, S);
+    launch_roll<float>(table, offs, out, L, K, C, S, st);
   return (int)cudaGetLastError();
 }
 

@@ -7,9 +7,20 @@ feature-major gradient ``g[l, k*C+c, s] = sum_{m: key_m=s} w_k * grad[l,c,m]``
 result is bitwise reproducible.
 
 For CUDA tensors :func:`bucket_grad_matmul` launches the kernel of
-``csrc/bucket_matmul.cu`` (one thread per output column, summing its run
-of the sorted stream); for CPU tensors it runs the plain version beside
-it, a scatter-add of the k-major payload taken in stream order.
+``csrc/bucket_matmul.cu``; for CPU tensors it runs the plain version
+beside it, a scatter-add of the k-major payload taken in stream order.
+The kernel is bound by the bytes it writes (the table-shaped gradient,
+almost all of it zeros on the main path) and by its longest run, a chain
+of dependent adds.  One block takes a tile of 1024 columns of one level:
+it finds the tile's segment of the sorted stream with two searches and
+each run's start by searching the segment in shared memory; a thread
+sums each short run and stores every row of its columns, zeros included,
+with neighbouring threads on neighbouring columns.  Longer runs go to
+warps that stage them with coalesced loads, and runs of 2048 or more to
+extra blocks, so that the dense coarse levels spread over many SMs.  The
+summation order is unchanged from the first design (one thread per
+column): each sum over its run in stream order, so the kernel equals the
+plain version bit for bit.
 
 The order matters: a long run (coarse levels hold thousands of points
 per column) summed in another order differs in f32 by ~1e-4; an atomic

@@ -16,6 +16,8 @@ products); the scatter's atomics add in no fixed order (rtol/atol 1e-5 on
 normal payloads, bit-equal on integer-valued ones, which sum exactly).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,7 @@ from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather
 from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
     base_and_frac_t,
     coherent_encode,
+    corner_offsets,
     coherent_encode_takevjp,
 )
 from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding import (
@@ -71,6 +74,51 @@ def test_roll_broadcast_kernel(dev, dtype):
     assert _build.LAUNCHES["roll_broadcast_fm"] == n0 + 1
     assert torch.equal(out, rk.roll_broadcast_fm_plain(table, SPEC, dtype))
     assert torch.equal(out.cpu(), rk.roll_broadcast_fm(table.cpu(), SPEC, dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class _SizedSpec(HashGridSpec):
+    """A spec whose table length need not be a power of two (the roll
+    kernels take any S; offsets are masked with S - 1, so they stay < S)."""
+
+    size: int = 3000
+
+    @property
+    def table_size(self) -> int:
+        return self.size
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", [1, 2, 4, 6, 3000, 3001, 2050, 1 << 14])
+def test_roll_broadcast_kernel_any_size(dev, dtype, size):
+    """Table lengths that are not a multiple of a thread's 8 columns or a
+    block's 2048, odd lengths (the scalar kernel), and odd offsets, whose
+    column pair crosses the wrap (the pair kernel's per-element case)."""
+    spec = _SizedSpec(num_levels=3, base_resolution=4, size=size)
+    if size >= 2050 and size % 2 == 0:
+        offs = corner_offsets(spec)
+        assert (offs % 2 == 1).any() and (offs % 2 == 0).any()
+    table = torch.randn((3, size, C), generator=_gen(dev, 17), device=dev)
+    n0 = _build.LAUNCHES["roll_broadcast_fm"]
+    out = rk.roll_broadcast_fm(table, spec, dtype)
+    again = rk.roll_broadcast_fm(table, spec, dtype)
+    assert _build.LAUNCHES["roll_broadcast_fm"] == n0 + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out, rk.roll_broadcast_fm_plain(table, spec, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_", [1, 2, 4])
+def test_roll_broadcast_kernel_channels_and_alignment(dev, dtype, C_):
+    """Other channel counts (scalar kernel), and a table that starts 8 bytes
+    past a 16-byte boundary (the pair kernel's float4 reads do not apply)."""
+    spec = HashGridSpec(num_levels=L, base_resolution=4, level_dim=C_,
+                        log2_hashmap_size=14)
+    n = L * S * C_
+    buf = torch.randn(n + 2, generator=_gen(dev, 18), device=dev)
+    for table in (buf[:n].view(L, S, C_), buf[2:].view(L, S, C_)):
+        out = rk.roll_broadcast_fm(table, spec, dtype)
+        assert torch.equal(out, rk.roll_broadcast_fm_plain(table, spec, dtype))
 
 
 def test_unroll_reduce_kernel(dev):
@@ -179,6 +227,123 @@ def test_bucket_identical_points(dev):
                                atol=1e-5, rtol=1e-5)  # f32 sum of 700 terms
     a[:, :, 4321] = 0
     assert not a.any()
+
+
+def _bucket_equal(keys, D, seed, S_, E, out_dtype=torch.float32):
+    """Sort ``keys`` per level, draw fracs and grads, and assert that the
+    kernel is bit-identical across two runs and bit-equal to the plain
+    version.  Returns the kernel's output."""
+    dev = keys.device
+    keys = torch.sort(keys.to(torch.int32), dim=1).values.contiguous()
+    L_, B = keys.shape
+    g = _gen(dev, seed)
+    frac = torch.rand((L_, D, B), generator=g, device=dev)
+    grads = torch.randn((L_, C, B), generator=g, device=dev)
+    kw = dict(table_size=S_, input_dim=D, out_dtype=out_dtype, extend_cols=E)
+    n0 = _build.LAUNCHES["bucket_grad_matmul"]
+    a = bm.bucket_grad_matmul(keys, frac, grads, **kw)
+    b = bm.bucket_grad_matmul(keys, frac, grads, **kw)
+    assert _build.LAUNCHES["bucket_grad_matmul"] == n0 + 2
+    assert a.shape == (L_, (1 << D) * C, S_ + E)
+    assert torch.equal(a, b)
+    assert torch.equal(a, bm.bucket_grad_matmul_plain(keys, frac, grads, **kw))
+    return a
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_bucket_runs_straddle_tile_edges(dev, out_dtype):
+    """Runs on both sides of every 256-, 512- and 1024-column boundary
+    (the kernel's tiles are 1024 columns), a few updates each."""
+    edges = torch.tensor([256, 512, 1024, 2048, 3072, 8192], device=dev)
+    cols = torch.stack([edges - 1, edges]).reshape(-1)
+    g = _gen(dev, 20)
+    pick = torch.randint(0, cols.numel(), (L, 600), generator=g, device=dev)
+    spread = torch.randint(0, S, (L, 400), generator=g, device=dev)
+    keys = torch.cat([cols[pick], spread], dim=1)
+    _bucket_equal(keys, 3, 21, S, rk._PAD, out_dtype)
+
+
+@pytest.mark.parametrize("D", [0, 3])
+def test_bucket_long_segments(dev, D):
+    """One column with 5,000 updates, and a tile with 20,000 spread over its
+    1024 columns: segments far longer than one sweep of the block."""
+    g = _gen(dev, 22)
+    keys = torch.cat([
+        torch.full((L, 5000), 1500, device=dev, dtype=torch.long),
+        torch.randint(4096, 5120, (L, 20000), generator=g, device=dev),
+        torch.randint(0, S, (L, 3000), generator=g, device=dev)], dim=1)
+    out = _bucket_equal(keys, D, 23, S, rk._PAD)
+    assert out[:, :, 1500].abs().sum() > 0
+
+
+@pytest.mark.parametrize("D", [0, 3])
+def test_bucket_long_runs_at_sample_and_slice_edges(dev, D):
+    """Runs of 2,047, 2,048 and 2,049 updates (on both sides of the length
+    at which a run goes to a slice block), eight 2,048-runs in a row (a
+    slice block's most), runs starting on and beside the 1,024-element
+    samples and crossing the 16,384-element slices, shifted per level."""
+    rng = np.random.default_rng(28)
+    lengths = [1, 2048, 2048, 2048, 2048, 2048, 2048, 2048, 2048, 2047, 2049,
+               1024, 1025, 16390, 5, 3 * 2048 + 1, 700, 4096]
+    B = 60000
+    rows = []
+    for lv in range(L):
+        lens = [lv * 37 + 1] + lengths[1:]
+        cols = 100 + 3 * np.arange(len(lens))
+        head = np.repeat(cols, lens)
+        tail = np.sort(rng.integers(cols[-1] + 1, S, B - head.size))
+        rows.append(np.concatenate([head, tail]))
+    keys = torch.as_tensor(np.stack(rows), device=dev)
+    out = _bucket_equal(keys, D, 29, S, rk._PAD)
+    assert out[:, :, 100:100 + 3 * len(lengths):3].abs().sum(1).gt(0).all()
+
+
+@pytest.mark.parametrize("C_", [1, 4, 8])
+@pytest.mark.parametrize("D", [0, 2, 3])
+def test_bucket_channel_counts(dev, D, C_):
+    """Every (D, C) the kernel takes: each sets how lanes share a long run's
+    K*C sums.  Runs of 1-32 (one thread), 33-2047 (a warp in the tile's
+    block) and 2048 or more (a slice block)."""
+    g = _gen(dev, 30)
+    keys = torch.cat([
+        torch.full((L, 3000), 700, device=dev, dtype=torch.long),
+        torch.randint(5000, 5040, (L, 4000), generator=g, device=dev),
+        torch.randint(0, S, (L, 3000), generator=g, device=dev)], dim=1)
+    keys, _ = torch.sort(keys.to(torch.int32), dim=1)
+    B = keys.shape[1]
+    frac = torch.rand((L, D, B), generator=g, device=dev)
+    grads = torch.randn((L, C_, B), generator=g, device=dev)
+    kw = dict(table_size=S, input_dim=D, extend_cols=rk._PAD)
+    a = bm.bucket_grad_matmul(keys, frac, grads, **kw)
+    assert torch.equal(a, bm.bucket_grad_matmul(keys, frac, grads, **kw))
+    assert torch.equal(a, bm.bucket_grad_matmul_plain(keys, frac, grads, **kw))
+
+
+@pytest.mark.parametrize("case", ["empty_stream", "one_tile", "last_column"])
+def test_bucket_empty_tiles(dev, case):
+    """An empty stream (every tile empty), keys confined to one tile (every
+    other tile empty), and every key in the table's last column."""
+    g = _gen(dev, 24)
+    keys = {"empty_stream": torch.zeros((L, 0), dtype=torch.long, device=dev),
+            "one_tile": torch.randint(0, 100, (L, 2000), generator=g, device=dev),
+            "last_column": torch.full((L, 300), S - 1, device=dev)}[case]
+    out = _bucket_equal(keys, 3, 25, S, rk._PAD)
+    if case == "empty_stream":
+        assert not out.any()
+    else:
+        assert not out[:, :, 100:S - 1].any()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [0, 2, 3])
+def test_bucket_ragged_table(dev, D, out_dtype):
+    """S = 3000, not a multiple of the 1024-column tile, with a 4224-column
+    extension: longer than a tile and than S, so the wrapped copies cross
+    tile edges and wrap twice."""
+    keys = torch.randint(0, 3000, (L, 5000), generator=_gen(dev, 26), device=dev)
+    out = _bucket_equal(keys, D, 27, 3000, rk._PAD, out_dtype)
+    assert torch.equal(out[:, :, 3000:6000], out[:, :, :3000])
+    assert torch.equal(out[:, :, 6000:], out[:, :, :rk._PAD - 3000])
 
 
 @pytest.mark.parametrize("packed", [False, True])
