@@ -8,20 +8,30 @@ Run from the root of a checkout, with no arguments:
 1. prints the card (``nvidia-smi`` name and power limit) and builds the
    four CUDA kernels of ``neuralvolumetricreconstructionformedicalimages_torch/csrc``;
 2. calls each kernel at the main-path shapes (16 levels x 2^19 x 2 table,
-   1024 rays x 192 samples of the chest phantom, bf16 rolled table, packed
+   1024 rays x 192 samples of the chest phantom, bf16 table dtype, packed
    fracs, 4224 wrap-extension columns) and holds it against its plain
-   PyTorch version on the same inputs: roll bit-equal; span atol 1e-5;
-   bucket bit-equal (``torch.equal``) and bit-identical across two runs,
-   also on 700 identical points; unroll atol 1e-5;
+   PyTorch version on the same inputs: roll bit-equal; span atol 1e-5 in
+   both addressing modes (the rolled table, and the canonical table that
+   the main path reads, ``span_gather_sorted[table]``), the two modes
+   bit-equal (``torch.equal``) to each other; bucket bit-equal and
+   bit-identical across two runs, also on 700 identical points; unroll
+   atol 1e-5;
 3. times each kernel, its plain version and (where one PyTorch call
    computes the same function) that call with ``utils/profiling.py::
    time_fn`` (CUDA events around each call; the median), beside the
    least time the card could take (bytes over 3.35 TB/s, or f32
-   operations over 67 TFLOP/s, whichever is larger);
+   operations over 67 TFLOP/s, whichever is larger); the kernel and the
+   library call also on the device (``utils/profiling.py::device_times``:
+   ``torch.profiler`` sums of every kernel and memset of a call, and 200
+   calls between one event pair), since the events around one call
+   bracket the host's launch path too;
 4. trains ``configs/chest_phantom_r3.yaml`` for one epoch (50 steps of 1024
    rays x 192 samples) through the port's ``Trainer``, with its epoch-0
-   eval, after setting every launch count to 0; fails unless each kernel
-   launched at least 50 times and the loss is finite and falling;
+   eval, after setting every launch count to 0; fails unless the span
+   gather (table mode), the bucket and the unroll launched at least 50
+   times, the roll build and the span gather's rolled mode not at all
+   (the main path reads the canonical table; each mode has its own launch
+   count), and the loss is finite and falling;
 5. prints the kernels as one JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -34,17 +44,21 @@ a. the kernels in the modes the other paths run: the bucket with a bf16
    stream of the same points (bit-equal, bit-identical twice);
 b. ``scatter_level`` at N = 1,572,864, S = 2^19, C = 2: rtol/atol 1e-5 on
    normal payloads, bit-equal on integer ones and on a 700-update column;
+   beside its event time, its device time and ``index_add_``'s;
 c. the encoder microbenchmark (``scripts/microbench_encoder_torch.py``),
    every row, launch counts read around it;
 d. 20 full-width training steps each of the XOR, rolled and take encoder
    paths through ``Trainer.train_step``, with the launches each requires
-   and a finite, falling loss.
+   (the roll build at least 20 times on the rolled path) and a finite,
+   falling loss.
 
 The bucket is the tile design of ``csrc/bucket_matmul.cu`` (one block per
 1024-column tile with two searches per tile, slice blocks for runs of
 2048 or more, every run summed in stream order) and is bit-equal to its
 plain version in all three modes; the roll build is the column-pair
-kernel of ``csrc/roll_kernels.cu`` (vector loads and stores).
+kernel of ``csrc/roll_kernels.cu`` (vector loads and stores); the span
+gather's table mode reads each corner's channel pair of the canonical
+table as one float2; ``scatter_level`` takes one update a thread.
 
 Any failed phase raises and exits non-zero.  Without a CUDA device it
 exits 1 and prints no result.
@@ -69,17 +83,24 @@ _REPLACES = {"roll_broadcast_fm": _TPU + "ops/roll_kernels.py:152",
              "bucket_grad_matmul": _TPU + "ops/bucket_matmul.py:261",
              "unroll_reduce_fm": _TPU + "ops/roll_kernels.py:192",
              "scatter_level": "scripts/microbench_encoder.py:142"}
+# The main path's kernels: launched in every step (True) or never (False).
+MAIN_NEEDS = {"span_gather_sorted[table]": True, "bucket_grad_matmul": True,
+              "unroll_reduce_fm": True, "span_gather_sorted": False,
+              "roll_broadcast_fm": False}
 # The other encoder paths of phase (d): overrides of the cfg's encoder and
 # the kernels that must launch in every step (True) or never (False).
 TRAIN_STEPS = 20
 PATHS = {
     "xor": ({"hash_variant": "xor"},
             {"bucket_grad_matmul": True, "span_gather_sorted": False,
-             "unroll_reduce_fm": False}),
+             "span_gather_sorted[table]": False, "unroll_reduce_fm": False,
+             "roll_broadcast_fm": False}),
     "rolled": ({"forward": "rolled", "input_grads": True, "table_dtype": "bfloat16"},
-               {"bucket_grad_matmul": True, "unroll_reduce_fm": True,
-                "span_gather_sorted": False}),
-    "take": ({"backward": "take"}, {k: False for k in _SOURCE}),
+               {"roll_broadcast_fm": True, "bucket_grad_matmul": True,
+                "unroll_reduce_fm": True, "span_gather_sorted": False,
+                "span_gather_sorted[table]": False}),
+    "take": ({"backward": "take"},
+             {k: False for k in (*_SOURCE, "span_gather_sorted[table]")}),
 }
 
 
@@ -123,7 +144,7 @@ def main() -> int:
     from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
         Trainer, build_model, pin_fp32)
     from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
-        StepTimer, time_fn)
+        StepTimer, device_times, time_fn)
     sys.path.insert(0, os.path.join(root, "scripts"))
     import microbench_encoder_torch as microbench
 
@@ -171,6 +192,8 @@ def main() -> int:
         """Time a kernel, its plain version and the library call; keep the
         entry (or, with ``mode``, a sub-entry of the kernel's entry)."""
         bms, by = bound_ms(n_bytes, n_ops)
+        kdev = device_times(kernel)
+        ldev = None if library is None else device_times(library)
         entry = dict(
             name=kname if mode is None else f"{kname}[{mode}]", route="cuda",
             source=f"neuralvolumetricreconstructionformedicalimages_torch/csrc/"
@@ -179,7 +202,10 @@ def main() -> int:
             ms=median_ms(kernel),
             plain_ms=median_ms(plain, warmup=min(3, plain_iters), iters=plain_iters),
             library_ms=None if library is None else median_ms(library),
-            bound_ms=bms, bound_by=by)
+            bound_ms=bms, bound_by=by,
+            device_ms=kdev["back_to_back_ms"], device_profiler_ms=kdev["profiler_ms"],
+            library_device_ms=None if ldev is None else ldev["back_to_back_ms"],
+            library_device_profiler_ms=None if ldev is None else ldev["profiler_ms"])
         if mode is None:
             results[kname] = entry
         else:
@@ -189,7 +215,18 @@ def main() -> int:
               f"{entry['ms']:.4f} ms  plain {entry['plain_ms']:.4f} ms  library "
               f"{'none' if lib is None else '%.4f ms' % lib}  "
               f"bound {bms:.4f} ms ({by})")
+        for who, t in (("kernel", kdev), ("library", ldev)):
+            if t is not None:
+                parts = ", ".join(f"{k[:40]} {v:.4f}" for k, v in t["parts"].items())
+                print(f"  {who} on the device: {t['back_to_back_ms']:.4f} ms a call "
+                      f"back to back, profiler {t['profiler_ms']:.4f} ms ({parts})")
         return entry
+
+    def entry_of(key):
+        """The kernels-line entry of a launch count's key: ``name`` or
+        ``name[mode]``."""
+        kname, _, mode = key.rstrip("]").partition("[")
+        return results[kname]["modes"][mode] if mode else results[kname]
 
     # ---- 1. roll_broadcast_fm (the column-pair kernel): bit-equal ----
     R = rk.roll_broadcast_fm(table, spec, torch.bfloat16)
@@ -210,7 +247,8 @@ def main() -> int:
            L * S * C * 4 + L * F * S * 2, 0)
     del idx, src, R_plain
 
-    # ---- 2. span_gather_sorted (packed fracs, bf16 table): atol 1e-5 ----
+    # ---- 2. span_gather_sorted (packed fracs, bf16 table), both modes:
+    # atol 1e-5 against the plain version, the modes bit-equal ----
     base_t, frac_t = base_and_frac_t(spec, x01)
     sk, perm = torch.sort(base_t, dim=-1, stable=True)
     spf = torch.gather(sg.pack_frac_t(frac_t), 1, perm)[:, None, :].contiguous()
@@ -225,6 +263,42 @@ def main() -> int:
            lambda: sg.span_gather_sorted_plain(sk, spf, R, input_dim=D), None,
            L * B * 4 * 2 + distinct * F * 2 + L * C * B * 4,
            L * B * (K * D + 2 * K * C))
+    # table mode (the main path): the canonical f32 table at the corners'
+    # offsets, rounded to bf16 as the roll rounds
+    out_t = sg.span_gather_sorted_table(sk, spf, table, spec, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not torch.equal(out_t, out):
+        raise AssertionError("span_gather_sorted[table] is not bit-equal to the "
+                             "rolled mode")
+    err = (out_t - sg.span_gather_sorted_table_plain(
+        sk, spf, table, spec, torch.bfloat16)).abs().max()
+    if not err <= 1e-5:
+        raise AssertionError(f"span_gather_sorted[table] differs by {float(err)}")
+    # bound: keys, packed fracs and output, and the canonical rows that some
+    # corner of some key touches, each read once.  Beside it, the 32-byte
+    # sectors each mode must fetch at least once: of every rolled row, the
+    # sectors that hold a key's column; of the canonical table, those that
+    # hold a touched row.
+    touched = sec_rolled = sec_table = 0
+    for l in range(L):
+        uk = torch.unique_consecutive(sk[l]).long()
+        rows = torch.unique((uk[:, None] + offs[l][None, :]) % S)
+        touched += int(rows.numel())
+        sec_rolled += int(torch.unique_consecutive(uk // (32 // R.element_size())).numel())
+        sec_table += int(torch.unique_consecutive(rows // (32 // (C * 4))).numel())
+    sector_mb = {"rolled": sec_rolled * F * 32 / 1e6, "table": sec_table * 32 / 1e6}
+    print(f"span_gather_sorted[table]: {distinct} distinct keys, {touched} "
+          f"canonical rows touched (of {L * S}); 32-byte sectors to fetch: "
+          f"rolled table {sector_mb['rolled']:.1f} MB ({F} rows), canonical "
+          f"table {sector_mb['table']:.1f} MB, beside "
+          f"{L * B * 4 * (2 + C) / 1e6:.1f} MB of keys, fracs and output")
+    record("span_gather_sorted", err,
+           lambda: sg.span_gather_sorted_table(sk, spf, table, spec, torch.bfloat16),
+           lambda: sg.span_gather_sorted_table_plain(sk, spf, table, spec,
+                                                     torch.bfloat16), None,
+           L * B * 4 * 2 + touched * C * 4 + L * C * B * 4,
+           L * B * (K * D + 2 * K * C), mode="table")
+    del out_t
 
     # ---- 3. bucket_grad_matmul: bit-equal to plain, bit-identical twice ----
     sf = sg.unpack_frac_t(spf[:, 0])
@@ -379,13 +453,12 @@ def main() -> int:
     steps = len(trainer.losses)
     print(f"training: {steps} steps in {wall:.1f} s wall (eval included), "
           f"launches {launches}")
-    for kname in ("roll_broadcast_fm", "span_gather_sorted", "bucket_grad_matmul",
-                  "unroll_reduce_fm"):
-        r = results[kname]
-        r["launches"] = int(launches.get(kname, 0))
-        if r["launches"] < 50:
-            raise AssertionError(f"{kname} launched {r['launches']} times on the "
-                                 f"training path (need >= 50)")
+    for kname, every_step in MAIN_NEEDS.items():
+        n = int(launches.get(kname, 0))
+        if (n < 50) if every_step else n:
+            raise AssertionError(f"{kname} launched {n} times in the main path's "
+                                 f"{steps} steps")
+        entry_of(kname)["launches"] = n
     losses = trainer.losses
     if steps < 50 or not np.isfinite(losses).all():
         raise AssertionError(f"bad losses: {losses}")
@@ -460,6 +533,8 @@ def main() -> int:
             if pname in mode:
                 results[kname]["modes"][mode[pname]]["launches"] = \
                     int(plaunch.get(kname, 0))
+        if pname == "rolled":   # the roll build's path since the main path skips it
+            results["roll_broadcast_fm"]["launches"] = int(plaunch["roll_broadcast_fm"])
         del tr
         torch.cuda.empty_cache()
 

@@ -2,28 +2,53 @@
 // ascending key stream.
 //
 // Replaces the Pallas `_kernel` of the JAX package
-// (ops/span_gather.py::span_gather_sorted):
+// (neuralvolumetricreconstructionformedicalimages_tpu/ops/span_gather.py:222
+// span_gather_sorted, pallas_call at :282):
 //
-//   out[l, c, i] = sum_k w_k(frac_i) * R[l, k*C + c, key_i]
+//   out[l, c, i] = sum_k w_k(frac_i) * V(l, k, c, key_i)
 //
-// with R the feature-major rolled table [L, K*C, S] (f32 or bf16), keys
-// [L, B] int32 ascending per level, and fracs either [L, D, B] f32 or
-// [L, 1, B] int32 packed 11/11/10-bit (D = 3).  Output [L, C, B] f32.
+// with keys [L, B] int32 ascending per level, fracs either [L, D, B] f32 or
+// [L, 1, B] int32 packed 11/11/10-bit (D = 3), output [L, C, B] f32, and
+// the corner value V read in one of two addressing modes of one kernel:
 //
-// What bounds it on the card: bytes.  At the main-path shape (L=16, K=8,
-// C=2, B=196608, S=2^19, bf16 table, packed fracs) it reads 12.6 MB of
-// keys, 12.6 MB of fracs and at most 100.7 MB of distinct table rows, and
-// writes 25.2 MB: at most ~151 MB, ~0.045 ms at 3.35 TB/s.
+//   ROLLED  V = R[l, k*C + c, key], R the feature-major rolled table
+//           [L, K*C, S] (f32 or bf16), as the TPU kernel reads it;
+//   TABLE   V = round(T[l, (key + off[l, k]) & (S - 1), c]), T the
+//           canonical [L, S, C] f32 table, off the [L, K] int32 corner
+//           offsets, round() the cast to the table dtype (bf16: rounded
+//           with __float2bfloat16_rn and widened back, as the roll build
+//           rounds).  S is a power of two.
 //
-// Design: one thread per (level, sorted point).  The TPU kernel streamed
-// table spans through VMEM and selected rows with one-hot MXU products
-// because the TPU has no gather unit; the GPU gathers directly.  Because
-// the stream is sorted, the 32 points of a warp hold nearby keys, so each
-// of the K*C row reads (stride S apart in this layout) touches few
-// sectors and neighbouring warps hit the same lines in L2.  Weights are
-// formed in the order of the TPU kernel (w_k = prod_d (bit ? f : 1-f)) and
-// the corners are summed in k order in f32, with __fmul_rn/__fadd_rn so
-// that the compiler does not fuse them into multiply-adds.
+// By definition R[l, k*C + c, s] = round(T[l, (s + off[l, k]) % S, c]), so
+// the two modes read the same values; the weights, the k order and the
+// __fmul_rn/__fadd_rn chain are shared, so they are bit-equal.
+//
+// Why the rolled table exists only for the TPU: the TPU has no gather unit,
+// so its kernel streams spans of R through VMEM and picks rows with one-hot
+// MXU products, and R puts every corner of a key in one row.  The card
+// gathers directly, and R is a 268 MB bf16 copy of a 67 MB f32 table at the
+// main-path shape, written by the roll build only to be read back here.
+//
+// What bounds it on the card: bytes.  Main-path shape: L = 16, K = 8,
+// C = 2, B = 196,608, S = 2^19, bf16 table dtype, packed fracs.
+// - ROLLED: keys 12.6 MB, fracs 12.6 MB, output 25.2 MB, and the K*C = 16
+//   rows of R.  At the 13 hashed levels the sorted stream puts ~6 points on
+//   each 32-byte sector of a 1 MiB bf16 row, so nearly every sector of all
+//   16 rows is fetched: ~218 MB, ~0.08 ms at 3.35 TB/s.  The layout, not
+//   the kernel, sets that time.
+// - TABLE: the same keys, fracs and output, and the canonical table read
+//   at most once, 67.1 MB: ~117 MB, ~0.035 ms.  Each level's 4 MB table
+//   stays in the 50 MB L2 while that level's stream sweeps it (the grid
+//   stride runs the stream level by level and ~1.4 levels are in flight);
+//   a warp's 32 sorted keys span ~85 columns at a hashed level, so each
+//   corner's 32 float2 loads fall on ~22 sectors of L2.
+//
+// Design: one thread per (level, sorted point), in a grid-stride loop.
+// Weights are formed in the order of the TPU kernel (w_k = prod_d (bit ?
+// f : 1-f)) and the corners are summed in k order in f32, with
+// __fmul_rn/__fadd_rn so that the compiler does not fuse them into
+// multiply-adds.  TABLE mode with C = 2 and an 8-byte aligned table loads
+// each corner's channel pair as one float2; other C take scalar loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,15 +58,33 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// How a corner's value is addressed: ROLLED reads R[l, k*C + c, key];
+// TABLE_PAIR and TABLE read T[l, (key + off) & (S - 1), c] (C = 2 as one
+// float2, or any C by scalar loads).
+enum Mode { ROLLED, TABLE_PAIR, TABLE };
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename TabT, int D, bool PACKED>
+// A canonical f32 value rounded to the table dtype T and widened back.
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// TabT is the table dtype: ROLLED reads TabT values; the TABLE modes read
+// f32 and round to TabT.
+template <typename TabT, int D, bool PACKED, int MODE>
 __global__ void span_gather_kernel(const int* __restrict__ keys,
                                    const void* __restrict__ frac_raw,
-                                   const TabT* __restrict__ tab,
+                                   const void* __restrict__ tab_raw,
+                                   const int* __restrict__ offs,
                                    float* __restrict__ out, int L, int C,
                                    long long B, long long S) {
   constexpr int K = 1 << D;
@@ -74,14 +117,46 @@ __global__ void span_gather_kernel(const int* __restrict__ keys,
       w[k] = wk;
     }
 
-    const TabT* col = tab + (long long)l * K * C * S + key;
-    for (int c = 0; c < C; ++c) {
-      float acc = __fmul_rn(w[0], to_f32(col[(long long)c * S]));
+    if constexpr (MODE == ROLLED) {
+      const TabT* col = (const TabT*)tab_raw + (long long)l * K * C * S + key;
+      for (int c = 0; c < C; ++c) {
+        float acc = __fmul_rn(w[0], to_f32(col[(long long)c * S]));
 #pragma unroll
-      for (int k = 1; k < K; ++k)
-        acc = __fadd_rn(acc,
-                        __fmul_rn(w[k], to_f32(col[(long long)(k * C + c) * S])));
-      out[((long long)l * C + c) * B + i] = acc;
+        for (int k = 1; k < K; ++k)
+          acc = __fadd_rn(
+              acc, __fmul_rn(w[k], to_f32(col[(long long)(k * C + c) * S])));
+        out[((long long)l * C + c) * B + i] = acc;
+      }
+    } else {
+      const int* ol = offs + l * K;
+      long long row[K];  // the corners' columns of the canonical table
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        row[k] = (long long)l * S + ((key + __ldg(ol + k)) & (S - 1));
+      if constexpr (MODE == TABLE_PAIR) {
+        const float2* tp = (const float2*)tab_raw;
+        float2 v = __ldg(tp + row[0]);
+        float a0 = __fmul_rn(w[0], round_to<TabT>(v.x));
+        float a1 = __fmul_rn(w[0], round_to<TabT>(v.y));
+#pragma unroll
+        for (int k = 1; k < K; ++k) {
+          v = __ldg(tp + row[k]);
+          a0 = __fadd_rn(a0, __fmul_rn(w[k], round_to<TabT>(v.x)));
+          a1 = __fadd_rn(a1, __fmul_rn(w[k], round_to<TabT>(v.y)));
+        }
+        out[(long long)l * 2 * B + i] = a0;
+        out[((long long)l * 2 + 1) * B + i] = a1;
+      } else {
+        const float* tp = (const float*)tab_raw;
+        for (int c = 0; c < C; ++c) {
+          float acc = __fmul_rn(w[0], round_to<TabT>(__ldg(tp + row[0] * C + c)));
+#pragma unroll
+          for (int k = 1; k < K; ++k)
+            acc = __fadd_rn(
+                acc, __fmul_rn(w[k], round_to<TabT>(__ldg(tp + row[k] * C + c))));
+          out[((long long)l * C + c) * B + i] = acc;
+        }
+      }
     }
   }
 }
@@ -93,12 +168,34 @@ int grid_for(long long n) {
   return (int)(blocks > 0 ? blocks : 1);
 }
 
-template <typename TabT, int D, bool PACKED>
-void launch(const void* keys, const void* frac, const void* tab, void* out,
-            int L, int C, long long B, long long S, cudaStream_t st) {
-  span_gather_kernel<TabT, D, PACKED>
+template <typename TabT, int D, bool PACKED, int MODE>
+void launch(const void* keys, const void* frac, const void* tab,
+            const void* offs, void* out, int L, int C, long long B,
+            long long S, cudaStream_t st) {
+  span_gather_kernel<TabT, D, PACKED, MODE>
       <<<grid_for((long long)L * B), kThreads, 0, st>>>(
-          (const int*)keys, frac, (const TabT*)tab, (float*)out, L, C, B, S);
+          (const int*)keys, frac, tab, (const int*)offs, (float*)out, L, C, B,
+          S);
+}
+
+// The fracs' form and D, for one table dtype and mode.
+template <typename TabT, int MODE>
+int dispatch(const void* keys, const void* frac, const void* tab,
+             const void* offs, void* out, int packed, int L, int D, int C,
+             long long B, long long S, cudaStream_t st) {
+  if (packed) {
+    if (D != 3) return (int)cudaErrorInvalidValue;
+    launch<TabT, 3, true, MODE>(keys, frac, tab, offs, out, L, C, B, S, st);
+  } else if (D == 3) {
+    launch<TabT, 3, false, MODE>(keys, frac, tab, offs, out, L, C, B, S, st);
+  } else if (D == 2) {
+    launch<TabT, 2, false, MODE>(keys, frac, tab, offs, out, L, C, B, S, st);
+  } else if (D == 1) {
+    launch<TabT, 1, false, MODE>(keys, frac, tab, offs, out, L, C, B, S, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -117,26 +214,33 @@ int nvr_span_gather_sorted(const void* keys, const void* frac, const void* tab,
                            int C, long long B, long long S, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((long long)L * B == 0) return (int)cudaGetLastError();
-#define NVR_SPAN(T)                                                         \
-  if (packed) {                                                             \
-    if (D != 3) return (int)cudaErrorInvalidValue;                          \
-    launch<T, 3, true>(keys, frac, tab, out, L, C, B, S, st);               \
-  } else if (D == 3) {                                                      \
-    launch<T, 3, false>(keys, frac, tab, out, L, C, B, S, st);              \
-  } else if (D == 2) {                                                      \
-    launch<T, 2, false>(keys, frac, tab, out, L, C, B, S, st);              \
-  } else if (D == 1) {                                                      \
-    launch<T, 1, false>(keys, frac, tab, out, L, C, B, S, st);              \
-  } else {                                                                  \
-    return (int)cudaErrorInvalidValue;                                      \
-  }
-  if (tab_bf16) {
-    NVR_SPAN(__nv_bfloat16)
-  } else {
-    NVR_SPAN(float)
-  }
-#undef NVR_SPAN
-  return (int)cudaGetLastError();
+  if (tab_bf16)
+    return dispatch<__nv_bfloat16, ROLLED>(keys, frac, tab, nullptr, out,
+                                           packed, L, D, C, B, S, st);
+  return dispatch<float, ROLLED>(keys, frac, tab, nullptr, out, packed, L, D,
+                                 C, B, S, st);
+}
+
+// keys and frac as above; table [L, S, C] f32 with S a power of two; offs
+// [L, 2^D] int32 in [0, S); out [L, C, B] f32.  Each table value is
+// rounded to bf16 first when round_bf16 != 0.  D in {1, 2, 3}.
+int nvr_span_gather_table(const void* keys, const void* frac,
+                          const void* table, const void* offs, void* out,
+                          int packed, int round_bf16, int L, int D, int C,
+                          long long B, long long S, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S <= 0 || (S & (S - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if ((long long)L * B == 0) return (int)cudaGetLastError();
+  const bool pair = C == 2 && (uintptr_t)table % sizeof(float2) == 0;
+  if (round_bf16)
+    return pair ? dispatch<__nv_bfloat16, TABLE_PAIR>(
+                      keys, frac, table, offs, out, packed, L, D, C, B, S, st)
+                : dispatch<__nv_bfloat16, TABLE>(keys, frac, table, offs, out,
+                                                 packed, L, D, C, B, S, st);
+  return pair ? dispatch<float, TABLE_PAIR>(keys, frac, table, offs, out,
+                                            packed, L, D, C, B, S, st)
+              : dispatch<float, TABLE>(keys, frac, table, offs, out, packed, L,
+                                       D, C, B, S, st);
 }
 
 }  // extern "C"

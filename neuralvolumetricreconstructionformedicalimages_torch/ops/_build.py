@@ -8,8 +8,9 @@ The first call that needs a library builds every missing one, one
 ``nvcc`` process per source, all started together.  A missing ``nvcc`` or
 a failed build raises; nothing falls back.
 
-Launch counts: every wrapper adds one to ``LAUNCHES[<kernel name>]`` where
-it launches its kernel, and nowhere else, so a run can show that the main
+Launch counts: every wrapper adds one to ``LAUNCHES[<kernel name>]`` (for
+a kernel's second addressing mode, ``<kernel name>[<mode>]``) where it
+launches its kernel, and nowhere else, so a run can show that the main
 path went through the kernels (``reset_launches`` sets them to 0).
 """
 
@@ -22,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -35,7 +36,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 LAUNCHES: collections.Counter = collections.Counter()
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# Every C entry: its library (``csrc/<name>.cu``) and its arguments, the
+# stream last.
+ENTRIES: Dict[str, Tuple[str, list]] = {
+    "nvr_roll_broadcast_fm": ("roll_kernels", [_P] * 3 + [_I] * 4 + [_L, _P]),
+    "nvr_unroll_reduce_fm": ("roll_kernels", [_P] * 3 + [_I] * 4 + [_L, _L, _P]),
+    "nvr_span_gather_sorted": ("span_gather", [_P] * 4 + [_I] * 5 + [_L, _L, _P]),
+    "nvr_span_gather_table": ("span_gather", [_P] * 5 + [_I] * 5 + [_L, _L, _P]),
+    "nvr_bucket_grad_matmul": ("bucket_matmul", [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P]),
+    "nvr_scatter_level": ("scatter_level", [_P] * 3 + [_I, _L, _L, _P]),
+}
+
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, Callable[..., int]] = {}
 
 
 def reset_launches() -> None:
@@ -97,16 +111,32 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, symbol: str, argtypes, device: torch.device, *args) -> None:
-    """Call the C entry ``symbol`` of library ``name`` on ``device``'s
+def _entry(symbol: str):
+    """The C entry ``symbol`` with its ``argtypes`` (from ``ENTRIES``) and
+    ``restype`` set, configured once and kept (a launch then costs one
+    ctypes call)."""
+    fn = _entries.get(symbol)
+    if fn is None:
+        name, argtypes = ENTRIES[symbol]
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[symbol] = fn
+    return fn
+
+
+def launch(symbol: str, device: torch.device, *args) -> None:
+    """Call the C entry ``symbol`` (one of ``ENTRIES``) on ``device``'s
     current stream (appended as the last argument) and raise if it returns
     a CUDA error (every entry returns ``cudaGetLastError()``)."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
+    fn = _entry(symbol)
+    if device.index is None or device.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
+        name = ENTRIES[symbol][0]
         msg = library(name).nvr_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel in {name}.cu failed: {msg} ({rc})")
 
@@ -129,8 +159,3 @@ def is_cpu(*tensors: torch.Tensor) -> bool:
     if dev.type == "cuda":
         return False
     raise ValueError(f"unsupported device {dev}")
-
-
-VOIDP = ctypes.c_void_p
-INT = ctypes.c_int
-I64 = ctypes.c_longlong

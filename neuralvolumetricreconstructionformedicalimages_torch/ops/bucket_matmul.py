@@ -150,10 +150,8 @@ def bucket_grad_matmul(
     out = torch.empty((L, K * C, S + E), dtype=out_dtype,
                       device=sorted_keys.device)
     _build.LAUNCHES["bucket_grad_matmul"] += 1
-    _build.launch("bucket_matmul", "nvr_bucket_grad_matmul",
-                  [_build.VOIDP] * 4 + [_build.INT] * 4 + [_build.I64] * 3
-                  + [_build.VOIDP],
-                  sorted_keys.device, sorted_keys.data_ptr(), sorted_frac.data_ptr(),
+    _build.launch("nvr_bucket_grad_matmul", sorted_keys.device,
+                  sorted_keys.data_ptr(), sorted_frac.data_ptr(),
                   sorted_grads.data_ptr(), out.data_ptr(),
                   int(out_dtype == torch.bfloat16), L, D, C, B, S, E)
     return out

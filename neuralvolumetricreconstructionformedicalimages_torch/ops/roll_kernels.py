@@ -1,11 +1,14 @@
 """Corner-roll kernels: canonical <-> feature-major rolled tables.
 
-Port of the JAX ``ops/roll_kernels.py``.  The sorted span-gather forward
-(``ops/span_gather.py``) reads the rolled feature-major table
+Port of the JAX ``ops/roll_kernels.py``.  The JAX sorted span-gather
+forward reads the rolled feature-major table
 ``R[l, k*C+c, s] = T[l, (s+off[l,k]) % S, c]`` and the bucket backward
 emits its gradient in the same layout; converting between the two is pure
 data movement -- K shifted copies (build) and a K-way shifted sum
-(gradient).
+(gradient).  In the port the build serves the rolled encoder path
+(``coherent_hash.coherent_encode``) and ``sorted_encode_features``; the
+sorted main path gathers from the canonical table in place
+(``span_gather.span_gather_sorted_table``).
 
 For CUDA tensors the wrappers launch the kernels of
 ``csrc/roll_kernels.cu``; for CPU tensors they run the plain PyTorch
@@ -110,9 +113,7 @@ def roll_broadcast_fm(table: torch.Tensor, spec: HashGridSpec,
                    f"dtype must be float32 or bfloat16, got {dtype}")
     out = torch.empty((L, K * C, S), dtype=dtype, device=table.device)
     _build.LAUNCHES["roll_broadcast_fm"] += 1
-    _build.launch("roll_kernels", "nvr_roll_broadcast_fm",
-                  [_build.VOIDP] * 3 + [_build.INT] * 4 + [_build.I64, _build.VOIDP],
-                  table.device, table.data_ptr(),
+    _build.launch("nvr_roll_broadcast_fm", table.device, table.data_ptr(),
                   _offsets_on(spec, table.device).data_ptr(), out.data_ptr(),
                   int(dtype == torch.bfloat16), L, K, C, S)
     return out
@@ -144,10 +145,7 @@ def unroll_reduce_fm(grad_ext: torch.Tensor, spec: HashGridSpec,
                    f"grad shape {tuple(grad_ext.shape)} does not match the spec")
     out = torch.empty((L, S, C), dtype=torch.float32, device=grad_ext.device)
     _build.LAUNCHES["unroll_reduce_fm"] += 1
-    _build.launch("roll_kernels", "nvr_unroll_reduce_fm",
-                  [_build.VOIDP] * 3 + [_build.INT] * 4
-                  + [_build.I64, _build.I64, _build.VOIDP],
-                  grad_ext.device, grad_ext.data_ptr(),
+    _build.launch("nvr_unroll_reduce_fm", grad_ext.device, grad_ext.data_ptr(),
                   _offsets_on(spec, grad_ext.device).data_ptr(), out.data_ptr(),
                   int(grad_ext.dtype == torch.bfloat16), L, K, C, S, Se)
     return out

@@ -56,9 +56,6 @@ def scatter_level(idx: torch.Tensor, payload: torch.Tensor,
     req(S > 0, "table_size must be > 0")
     out = torch.empty((S, C), dtype=torch.float32, device=idx.device)
     _build.LAUNCHES["scatter_level"] += 1
-    _build.launch("scatter_level", "nvr_scatter_level",
-                  [_build.VOIDP] * 3 + [_build.INT, _build.I64, _build.I64,
-                                        _build.VOIDP],
-                  idx.device, idx.data_ptr(), payload.data_ptr(), out.data_ptr(),
-                  C, idx.shape[0], S)
+    _build.launch("nvr_scatter_level", idx.device, idx.data_ptr(),
+                  payload.data_ptr(), out.data_ptr(), C, idx.shape[0], S)
     return out

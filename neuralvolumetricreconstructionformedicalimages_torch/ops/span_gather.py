@@ -3,15 +3,21 @@ encoder's autograd Function.
 
 Port of the JAX ``ops/span_gather.py``.  Pipeline of :func:`sorted_encode`:
 
-1. ``roll_broadcast_fm`` builds the feature-major rolled table
-   ``R[l, k*C + c, s] = table[l, (s + off[l, k]) % S, c]`` (bf16 on the
-   main path);
-2. per level, a stable integer sort of the base indices (``torch.sort``)
+1. per level, a stable integer sort of the base indices (``torch.sort``)
    gives the sorted keys and the permutation;
-3. :func:`span_gather_sorted` interpolates every sorted point from the
-   2^D corner features of its key's row;
-4. an index copy by the saved permutation un-permutes the features (the
+2. :func:`span_gather_sorted_table` interpolates every sorted point from
+   the 2^D corner features of its key, read from the canonical ``[L, S,
+   C]`` table at the corners' offsets and rounded to the table dtype;
+3. an index copy by the saved permutation un-permutes the features (the
    JAX code sorts a second time; it is the same function).
+
+The JAX forward first builds the feature-major rolled table
+``R[l, k*C + c, s] = table[l, (s + off[l, k]) % S, c]`` (``roll_broadcast_fm``)
+and gathers from it (:func:`span_gather_sorted`): the TPU has no gather
+unit, and R puts every corner of a key in one row.  The card gathers
+directly, so the main path skips R; both gathers are one kernel in two
+addressing modes and are bit-equal.  :func:`sorted_encode_features` keeps
+the JAX signature and the rolled route.
 
 Backward wrt the table (the positions get no gradient on this path): the
 forward's permutation sorts the output gradient, ``bucket_grad_matmul``
@@ -28,12 +34,12 @@ import torch
 
 from . import _build
 from .bucket_matmul import bucket_grad_matmul
-from .coherent_hash import base_and_frac_t, corner_bits
+from .coherent_hash import base_and_frac_t, corner_bits, corner_offsets
 from .hash_encoding import HashGridSpec
 from .roll_kernels import (
     _PAD,
+    _offsets_on,
     _unroll_sum,
-    roll_broadcast_fm,
     roll_broadcast_fm_plain,
     unroll_reduce_fm,
 )
@@ -84,6 +90,24 @@ def span_gather_sorted_plain(sorted_keys: torch.Tensor,
     return _trilerp_sorted(frac, vals, K, F // K)
 
 
+def _check_stream(sorted_keys, sorted_frac, D: int) -> bool:
+    """Check the sorted keys and fracs a kernel mode takes; True when the
+    fracs are packed."""
+    L, B = sorted_keys.shape
+    packed = sorted_frac.dtype == torch.int32
+    req = _build.require
+    req(sorted_keys.dtype == torch.int32, "sorted_keys must be int32")
+    if packed:
+        req(D == 3 and tuple(sorted_frac.shape) == (L, 1, B),
+            "packed fracs must be [L, 1, B] int32 with input_dim 3")
+    else:
+        req(sorted_frac.dtype == torch.float32 and 1 <= D <= 3
+            and tuple(sorted_frac.shape) == (L, D, B),
+            f"sorted_frac must be [L, D, B] float32, got "
+            f"{tuple(sorted_frac.shape)} {sorted_frac.dtype}")
+    return packed
+
+
 def span_gather_sorted(sorted_keys: torch.Tensor, sorted_frac: torch.Tensor,
                        rolled_fm: torch.Tensor, *,
                        input_dim: int) -> torch.Tensor:
@@ -108,32 +132,96 @@ def span_gather_sorted(sorted_keys: torch.Tensor, sorted_frac: torch.Tensor,
     K = 1 << D
     _, F, S = rolled_fm.shape
     C = F // K
-    packed = sorted_frac.dtype == torch.int32
+    packed = _check_stream(sorted_keys, sorted_frac, D)
     req = _build.require
-    req(sorted_keys.dtype == torch.int32, "sorted_keys must be int32")
     req(rolled_fm.dtype in (torch.float32, torch.bfloat16),
         "rolled_fm must be float32 or bfloat16")
     req(rolled_fm.shape[0] == L and C * K == F and C > 0,
         f"rolled_fm shape {tuple(rolled_fm.shape)} does not fit {L} levels "
         f"of 2^{D} corners")
-    if packed:
-        req(D == 3 and tuple(sorted_frac.shape) == (L, 1, B),
-            "packed fracs must be [L, 1, B] int32 with input_dim 3")
-    else:
-        req(sorted_frac.dtype == torch.float32 and 1 <= D <= 3
-            and tuple(sorted_frac.shape) == (L, D, B),
-            f"sorted_frac must be [L, D, B] float32, got "
-            f"{tuple(sorted_frac.shape)} {sorted_frac.dtype}")
     req(all(t.is_contiguous() for t in (sorted_keys, sorted_frac, rolled_fm)),
         "inputs must be contiguous")
     out = torch.empty((L, C, B), dtype=torch.float32, device=sorted_keys.device)
     _build.LAUNCHES["span_gather_sorted"] += 1
-    _build.launch("span_gather", "nvr_span_gather_sorted",
-                  [_build.VOIDP] * 4 + [_build.INT] * 5
-                  + [_build.I64, _build.I64, _build.VOIDP],
-                  sorted_keys.device, sorted_keys.data_ptr(), sorted_frac.data_ptr(),
+    _build.launch("nvr_span_gather_sorted", sorted_keys.device,
+                  sorted_keys.data_ptr(), sorted_frac.data_ptr(),
                   rolled_fm.data_ptr(), out.data_ptr(), int(packed),
                   int(rolled_fm.dtype == torch.bfloat16), L, D, C, B, S)
+    return out
+
+
+def span_gather_sorted_table_plain(sorted_keys: torch.Tensor,
+                                   sorted_frac: torch.Tensor,
+                                   table: torch.Tensor, spec: HashGridSpec,
+                                   table_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of :func:`span_gather_sorted_table`: gather each
+    corner's row ``(key + off[l, k]) % S`` of the table cast to
+    ``table_dtype``, then the weights and the k-order sum of
+    :func:`span_gather_sorted_plain`."""
+    L, B = sorted_keys.shape
+    _, S, C = table.shape
+    D = spec.input_dim
+    if sorted_frac.dtype == torch.int32:
+        frac = unpack_frac_t(sorted_frac.reshape(L, B))
+    else:
+        frac = sorted_frac
+    offs = torch.as_tensor(corner_offsets(spec), dtype=torch.int64,
+                           device=table.device)                  # [L, K]
+    rows = (sorted_keys.long()[:, None, :] + offs[:, :, None]) % S  # [L, K, B]
+    rows = rows + torch.arange(L, device=table.device)[:, None, None] * S
+    flat = rows[:, :, None, :] * C + torch.arange(C, device=table.device)[:, None]
+    vals = table.to(table_dtype).reshape(-1)[flat]               # [L, K, C, B]
+    return _trilerp_sorted(frac, vals.reshape(L, -1, B).to(torch.float32),
+                           1 << D, C)
+
+
+def span_gather_sorted_table(sorted_keys: torch.Tensor,
+                             sorted_frac: torch.Tensor, table: torch.Tensor,
+                             spec: HashGridSpec,
+                             table_dtype=torch.float32) -> torch.Tensor:
+    """:func:`span_gather_sorted` reading the canonical table in place of
+    its rolled copy: corner k of key s is ``table[l, (s + off[l, k]) % S]``,
+    rounded to ``table_dtype`` (f32 or bf16) as ``roll_broadcast_fm``
+    rounds it.  Bit-equal to ``span_gather_sorted(..., roll_broadcast_fm(
+    table, spec, table_dtype), ...)``; the same kernel in another
+    addressing mode, counted apart, under
+    ``LAUNCHES["span_gather_sorted[table]"]``, so a run shows which mode
+    it launched.
+
+    Args:
+      sorted_keys: [L, B] int32, ascending per level, in [0, S).
+      sorted_frac: [L, D, B] f32 or [L, 1, B] int32 packed (D = 3), as for
+        :func:`span_gather_sorted`.
+      table: [L, S, C] f32 canonical table (S a power of two, as every
+        ``HashGridSpec`` has).
+      spec: the grid; gives D and the corner offsets.
+
+    Returns:
+      feats_sorted [L, C, B] f32.
+    """
+    if _build.is_cpu(sorted_keys, sorted_frac, table):
+        return span_gather_sorted_table_plain(sorted_keys, sorted_frac, table,
+                                              spec, table_dtype)
+    L, B = sorted_keys.shape
+    D = spec.input_dim
+    _, S, C = table.shape
+    packed = _check_stream(sorted_keys, sorted_frac, D)
+    req = _build.require
+    req(table.dtype == torch.float32, "table must be float32")
+    req(table_dtype in (torch.float32, torch.bfloat16),
+        f"table_dtype must be float32 or bfloat16, got {table_dtype}")
+    req(L == spec.num_levels and S == spec.table_size and C > 0,
+        f"table shape {tuple(table.shape)} does not match the spec")
+    req(S & (S - 1) == 0, f"table size {S} must be a power of two")
+    req(all(t.is_contiguous() for t in (sorted_keys, sorted_frac, table)),
+        "inputs must be contiguous")
+    out = torch.empty((L, C, B), dtype=torch.float32, device=sorted_keys.device)
+    _build.LAUNCHES["span_gather_sorted[table]"] += 1
+    _build.launch("nvr_span_gather_table", sorted_keys.device,
+                  sorted_keys.data_ptr(), sorted_frac.data_ptr(),
+                  table.data_ptr(), _offsets_on(spec, table.device).data_ptr(),
+                  out.data_ptr(), int(packed), int(table_dtype == torch.bfloat16),
+                  L, D, C, B, S)
     return out
 
 
@@ -223,25 +311,24 @@ def _unpack_feats(pk: torch.Tensor) -> torch.Tensor:
 # Full sorted-forward encode with the bucket backward
 # ---------------------------------------------------------------------------
 
-def _encode_sorted(base_t, frac_t, rolled_fm, input_dim: int, pack: bool):
+def _encode_sorted(base_t, frac_t, gather, input_dim: int, n_channels: int,
+                   pack: bool):
     """Point-order features [B, L*C] plus what the backward reuses: the
     sorted keys, the permutation and the sorted fracs (packed int32 [L, B]
-    when ``pack``, else f32 [L, D, B])."""
+    when ``pack``, else f32 [L, D, B]).  ``gather(sorted_keys,
+    sorted_frac)`` is the span gather of one table layout."""
     L, B = base_t.shape
-    D = int(input_dim)
-    K = 1 << D
-    C = rolled_fm.shape[1] // K
+    D, C = int(input_dim), int(n_channels)
     sk, perm = torch.sort(base_t, dim=-1, stable=True)           # int32, int64
     if pack and D == 3 and C == 2:
         spf = torch.gather(pack_frac_t(frac_t), 1, perm)         # [L, B] int32
-        feats_sorted = span_gather_sorted(
-            sk, spf[:, None, :], rolled_fm, input_dim=D)         # [L, C, B]
+        feats_sorted = gather(sk, spf[:, None, :])               # [L, C, B]
         packed_sorted = _pack_feats(feats_sorted)                # [L, B]
         packed = torch.empty_like(packed_sorted).scatter_(1, perm, packed_sorted)
         out = _unpack_feats(packed.t())                          # [B, L, 2]
         return out.reshape(B, L * C), (sk, perm, spf)
     sfr = torch.gather(frac_t, 2, perm[:, None, :].expand(L, D, B))
-    feats_sorted = span_gather_sorted(sk, sfr, rolled_fm, input_dim=D)
+    feats_sorted = gather(sk, sfr)
     feats = torch.empty_like(feats_sorted).scatter_(
         2, perm[:, None, :].expand(L, C, B), feats_sorted)
     return feats.permute(2, 0, 1).reshape(B, L * C), (sk, perm, sfr)
@@ -260,17 +347,27 @@ def sorted_encode_features(base_t: torch.Tensor, frac_t: torch.Tensor,
     int32 and the features as one bf16 pair: features are then rounded to
     bf16.  ``pack=False`` keeps everything f32.
     """
-    return _encode_sorted(base_t, frac_t, rolled_fm, input_dim, pack)[0]
+    D = int(input_dim)
+
+    def gather(sk, sfrac):
+        return span_gather_sorted(sk, sfrac, rolled_fm, input_dim=D)
+
+    return _encode_sorted(base_t, frac_t, gather, D,
+                          rolled_fm.shape[1] >> D, pack)[0]
 
 
 class _SortedEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x01, table, spec, table_dtype, pack):
-        rolled_fm = roll_broadcast_fm(table.detach(), spec, table_dtype)
+        tab = table.detach()
         base_t, frac_t = base_and_frac_t(spec, x01.detach())
         pack = bool(pack) and spec.input_dim == 3 and spec.level_dim == 2
+
+        def gather(sk, sfrac):
+            return span_gather_sorted_table(sk, sfrac, tab, spec, table_dtype)
+
         out, (sk, perm, sfrac) = _encode_sorted(
-            base_t, frac_t, rolled_fm, spec.input_dim, pack)
+            base_t, frac_t, gather, spec.input_dim, table.shape[2], pack)
         ctx.save_for_backward(sk, perm, sfrac)
         ctx.spec = spec
         ctx.pack = pack

@@ -8,6 +8,11 @@ times (they include any gap in which the host left the stream idle).
 ``time_fn`` times a function call by call (port of the JAX
 ``utils/profiling.py::time_fn``, with CUDA events in place of JAX's host
 fence); ``profiler_trace`` captures a ``torch.profiler`` trace.
+
+``device_times`` times a call on the card without the host's launch path:
+events around one call bracket ctypes, argument checks and allocation as
+well as the kernel, which for a kernel of tens of microseconds may time
+the host.
 """
 
 from __future__ import annotations
@@ -125,3 +130,40 @@ def profiler_trace(logdir: Optional[str]):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def device_times(fn: Callable, iters: int = 50, calls: int = 200) -> Dict:
+    """Device time per call of ``fn`` (which launches work on the card), in
+    milliseconds, two ways:
+
+    - ``profiler_ms``: ``torch.profiler``'s device time of every kernel and
+      memset the call launches, summed over ``iters`` calls, per call;
+      ``parts`` gives it by kernel name;
+    - ``back_to_back_ms``: ``calls`` calls between one pair of CUDA events,
+      per call; the host runs ahead, so the device does not wait on it.
+    """
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "is_user_annotation", False):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            parts[ev.key] = dev_us / 1e3 / iters
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"profiler_ms": sum(parts.values()), "parts": parts,
+            "back_to_back_ms": start.elapsed_time(end) / calls}

@@ -14,7 +14,13 @@ table), runs warm-up steps, then profiles ``--steps`` steps with
   would inflate the profiled window's wall time);
 - device time by kernel name (top ``--top``), with the four encoder
   kernels of ``csrc/`` marked;
-- the number of kernel launches per step.
+- the number of kernel launches per step;
+- the peak device memory of the unprofiled window
+  (``torch.cuda.max_memory_allocated`` after a reset);
+- the host syncs of one more step (``torch.cuda.set_sync_debug_mode``
+  warnings, by the line of the port that made them): at each, the host
+  waits for the device to drain, and the device then idles while the
+  host queues the next launches.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -28,10 +34,12 @@ Run from the repository root on a machine with a CUDA card:
 """
 
 import argparse
+import collections
 import json
 import os
 import sys
 import time
+import warnings
 
 import torch
 import yaml
@@ -69,11 +77,13 @@ def main(argv=None) -> int:
     for i in range(args.warmup):
         tr.train_step(views[i % len(views)])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i in range(args.steps):
         tr.train_step(views[i % len(views)])
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -82,6 +92,18 @@ def main(argv=None) -> int:
             tr.train_step(views[i % len(views)])
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr.train_step(views[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    sync_sites = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
 
     rows = []
     for ev in prof.key_averages():
@@ -101,7 +123,10 @@ def main(argv=None) -> int:
     print(f"wall per step: {wall_ms:.3f} ms unprofiled, {prof_wall_ms:.3f} ms profiled; "
           f"device kernel time per step: {dev_ms:.3f} ms; "
           f"device idle share: {1 - dev_ms / wall_ms:.3f}; kernel launches per step: "
-          f"{launches:.0f}")
+          f"{launches:.0f}; peak device memory (max_memory_allocated): "
+          f"{peak_mb:.1f} MB")
+    print(f"host syncs in one step: {sum(sync_sites.values())} "
+          f"({', '.join(f'{k} x{n}' for k, n in sync_sites.most_common())})")
     enc_ms = sum(r[1] for r in rows if any(k in r[0] for k in ENCODER_KERNELS))
     print(f"four encoder kernels: {enc_ms:.3f} ms per step "
           f"({enc_ms / dev_ms:.3f} of device time)")
@@ -113,7 +138,10 @@ def main(argv=None) -> int:
                "wall_ms_per_step": wall_ms,
                "profiled_wall_ms_per_step": prof_wall_ms,
                "device_ms_per_step": dev_ms, "device_idle_share": 1 - dev_ms / wall_ms,
-               "launches_per_step": launches, "encoder_kernels_ms_per_step": enc_ms,
+               "launches_per_step": launches, "peak_memory_mb": peak_mb,
+               "host_syncs_per_step": sum(sync_sites.values()),
+               "host_sync_sites": dict(sync_sites),
+               "encoder_kernels_ms_per_step": enc_ms,
                "top": [{"kernel": n, "ms_per_step": m, "calls_per_step": c}
                        for n, m, c in rows[: args.top]]}
     if args.out:

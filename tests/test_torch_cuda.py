@@ -10,6 +10,8 @@ a machine with only PyTorch and the CUDA toolkit:
 Tolerances: rolls are copies (bit-equal); the span gather and the unroll
 reduce (f32 or bf16 input) take the same f32 operations in the same order
 as the plain versions, up to the plain versions' own kernels (atol 1e-5);
+the span gather's table mode reads the values of the rolled mode through
+the same arithmetic (bit-equal to it and to its plain version);
 the bucket sum is bitwise reproducible run to run, and equals the plain
 version bit for bit (both sum every run in stream order from the same f32
 products); the scatter's atomics add in no fixed order (rtol/atol 1e-5 on
@@ -390,3 +392,160 @@ def test_wrapper_checks_raise(dev):
         bm.bucket_grad_matmul(keys, frac.transpose(0, 1).contiguous().transpose(0, 1),
                               grads, table_size=S, input_dim=3)
     assert np.isfinite(table.sum().item())
+
+
+@pytest.fixture
+def wrap_offsets(monkeypatch):
+    """Set every spec's corner offsets to ones at the wrap: corner 0 at 0,
+    the last at S - 8 and the others at S - 1 (the offsets are cached on the
+    card per spec, so the cache is cleared around the test)."""
+    def offsets(spec):
+        K = 1 << spec.input_dim
+        offs = np.full((spec.num_levels, K), spec.table_size - 1, np.int32)
+        offs[:, 0] = 0
+        offs[:, -1] = spec.table_size - 8
+        return offs
+
+    rk._offsets_on.cache_clear()
+    monkeypatch.setattr(rk, "corner_offsets", offsets)
+    monkeypatch.setattr(sg, "corner_offsets", offsets)
+    yield
+    rk._offsets_on.cache_clear()
+
+
+def _wrap_stream(dev, spec, B, seed, packed):
+    """Sorted keys [L, B] with the last ones in the table's last 8 columns,
+    and fracs [L, D, B] f32 or packed [L, 1, B] int32."""
+    g = _gen(dev, seed)
+    Ls, S_ = spec.num_levels, spec.table_size
+    keys = torch.randint(0, S_, (Ls, B), generator=g, device=dev, dtype=torch.int32)
+    n = min(B, 16)
+    keys[:, B - n:] = torch.randint(S_ - 8, S_, (Ls, n), generator=g, device=dev,
+                                    dtype=torch.int32)
+    keys, _ = torch.sort(keys, dim=1)
+    frac = torch.rand((Ls, spec.input_dim, B), generator=g, device=dev)
+    if packed:
+        frac = sg.pack_frac_t(frac)[:, None, :].contiguous()
+    return keys, frac
+
+
+def _table_equals_rolled(dev, spec, B, dtype, packed, table):
+    keys, frac = _wrap_stream(dev, spec, B, 40, packed)
+    n0 = _build.LAUNCHES["span_gather_sorted[table]"]
+    out = sg.span_gather_sorted_table(keys, frac, table, spec, dtype)
+    assert _build.LAUNCHES["span_gather_sorted[table]"] == n0 + 1
+    rolled = sg.span_gather_sorted(keys, frac, rk.roll_broadcast_fm(
+        table.contiguous(), spec, dtype), input_dim=spec.input_dim)
+    assert out.shape == (spec.num_levels, table.shape[2], B)
+    assert torch.equal(out, rolled)
+    torch.testing.assert_close(out, sg.span_gather_sorted_table_plain(
+        keys, frac, table, spec, dtype), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("offsets", ["spec", "wrap"])
+@pytest.mark.parametrize("log2_size", [14, 19])
+@pytest.mark.parametrize("dtype,packed,D", [
+    (torch.bfloat16, True, 3), (torch.float32, False, 3),
+    (torch.bfloat16, False, 3), (torch.float32, False, 1),
+    (torch.float32, False, 2)],
+    ids=["bf16_packed_d3", "f32_d3", "bf16_d3", "f32_d1", "f32_d2"])
+def test_span_gather_table_mode_equals_rolled(dev, request, dtype, packed, D,
+                                              log2_size, offsets):
+    """The table mode is bit-equal to the rolled mode on the roll of the
+    same table, and within atol 1e-5 of its plain version: B = 1507 (not a multiple of the
+    256-thread block), keys in the last 8 columns, and (``wrap``) corner
+    offsets of S - 1 and S - 8."""
+    if offsets == "wrap":
+        request.getfixturevalue("wrap_offsets")
+    spec = HashGridSpec(num_levels=L, base_resolution=4, input_dim=D,
+                        log2_hashmap_size=log2_size)
+    table = torch.randn((L, spec.table_size, C), generator=_gen(dev, 41), device=dev)
+    _table_equals_rolled(dev, spec, 1507, dtype, packed, table)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["c1", "c4", "c2_unaligned"])
+def test_span_gather_table_mode_channels_and_alignment(dev, dtype, layout):
+    """Other channel counts, and a C = 2 table that starts 4 bytes past an
+    8-byte boundary: both take the scalar loads in place of float2."""
+    C_ = {"c1": 1, "c4": 4, "c2_unaligned": 2}[layout]
+    spec = HashGridSpec(num_levels=L, base_resolution=4, level_dim=C_,
+                        log2_hashmap_size=14)
+    n = L * S * C_
+    buf = torch.randn(n + 1, generator=_gen(dev, 42), device=dev)
+    table = buf[1:] if layout == "c2_unaligned" else buf[:n]
+    table = table.view(L, S, C_)
+    assert (table.data_ptr() % 8 != 0) == (layout == "c2_unaligned")
+    _table_equals_rolled(dev, spec, 1507, dtype, False, table)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_span_gather_table_mode_empty_stream(dev, packed):
+    keys, frac = _wrap_stream(dev, SPEC, 0, 43, packed)
+    table = torch.randn((L, S, C), generator=_gen(dev, 44), device=dev)
+    out = sg.span_gather_sorted_table(keys, frac, table, SPEC, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.shape == (L, C, 0)
+
+
+@pytest.mark.parametrize("placement", ["aligned", "offset_one_row"])
+@pytest.mark.parametrize("C_", [1, 2, 4])
+@pytest.mark.parametrize("N", [0, 1, 3, 4, 5, 1027])
+def test_scatter_level_kernel_short_and_unaligned(dev, N, C_, placement):
+    """Short streams (none, one, a partial block) and payloads and indices
+    one row past a 16-byte boundary: bit-equal on integer payloads,
+    rtol/atol 1e-5 on normal ones."""
+    g = _gen(dev, 45)
+    S_, shift = 64, (1 if placement == "offset_one_row" else 0)
+    idx_buf = torch.randint(0, S_, (N + 1,), generator=g, device=dev,
+                            dtype=torch.int32)
+    ipay_buf = torch.randint(-50, 50, ((N + 1) * C_,), generator=g, device=dev).float()
+    npay_buf = torch.randn(((N + 1) * C_,), generator=g, device=dev)
+    idx = idx_buf[shift:shift + N]
+    for buf in (ipay_buf, npay_buf):
+        pay = buf[shift * C_:(shift + N) * C_].view(N, C_)
+        if N:
+            assert (pay.data_ptr() % 16 == 0) == (shift == 0 or C_ == 4)
+        out = sl.scatter_level(idx, pay, S_)
+        ref = sl.scatter_level_plain(idx, pay, S_)
+        if buf is ipay_buf:
+            assert torch.equal(out, ref)
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_scatter_level_kernel_skips_out_of_range(dev):
+    """Indices outside [0, S) are skipped, in a stream that is not a
+    multiple of the 256-thread block."""
+    g = _gen(dev, 46)
+    idx = torch.randint(0, 256, (1027,), generator=g, device=dev, dtype=torch.int32)
+    idx[::5] = -1
+    idx[1::7] = 256
+    pay = torch.randint(-9, 9, (1027, 2), generator=g, device=dev).float()
+    keep = (idx >= 0) & (idx < 256)
+    assert torch.equal(sl.scatter_level(idx, pay, 256),
+                       sl.scatter_level_plain(idx[keep], pay[keep], 256))
+
+
+def test_launch_path_raises_on_kernel_error(dev):
+    """The launch path keeps each configured C entry, and a non-zero return
+    raises on every call, the cached ones too."""
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    pay = torch.zeros((8, 3), device=dev)
+    out = torch.empty((16, 3), device=dev)
+    for _ in range(2):   # C = 3 is refused by the C entry itself
+        with pytest.raises(RuntimeError, match="scatter_level.cu failed"):
+            _build.launch("nvr_scatter_level", dev, idx.data_ptr(), pay.data_ptr(),
+                          out.data_ptr(), 3, 8, 16)
+    assert "nvr_scatter_level" in _build._entries
+    keys = torch.zeros((L, 4), dtype=torch.int32, device=dev)
+    frac = torch.zeros((L, 3, 4), device=dev)
+    table = torch.zeros((L, 3000, C), device=dev)
+    offs = torch.zeros((L, 8), dtype=torch.int32, device=dev)
+    fout = torch.empty((L, C, 4), device=dev)
+    with pytest.raises(RuntimeError, match="span_gather.cu failed"):
+        # S = 3000 is not a power of two: refused by the table entry
+        _build.launch("nvr_span_gather_table", dev, keys.data_ptr(), frac.data_ptr(),
+                      table.data_ptr(), offs.data_ptr(), fout.data_ptr(), 0, 0, L,
+                      3, C, 4, 3000)
+    torch.cuda.synchronize()

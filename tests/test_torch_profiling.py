@@ -55,3 +55,14 @@ def test_time_fn_uses_cuda_events_on_the_card():
     x = torch.ones((1024, 1024), device="cuda")
     r = profiling.time_fn(torch.mm, x, x, warmup=2, iters=5)
     assert 0 < r["min_s"] <= r["median_s"] < 1.0
+
+
+@pytest.mark.cuda
+def test_device_times_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.ones((1024, 1024), device="cuda")
+    r = profiling.device_times(lambda: torch.mm(x, x), iters=5, calls=20)
+    assert r["parts"] and 0 < r["profiler_ms"] < 100.0
+    assert r["profiler_ms"] == pytest.approx(sum(r["parts"].values()))
+    assert 0 < r["back_to_back_ms"] < 100.0
