@@ -10,10 +10,10 @@ Run from the root of a checkout, with no arguments:
 2. calls each kernel at the main-path shapes (16 levels x 2^19 x 2 table,
    1024 rays x 192 samples of the chest phantom, bf16 table dtype, packed
    fracs, 4224 wrap-extension columns) and holds it against its plain
-   PyTorch version on the same inputs: roll bit-equal; span atol 1e-5 in
-   both addressing modes (the rolled table, and the canonical table that
-   the main path reads, ``span_gather_sorted[table]``), the two modes
-   bit-equal (``torch.equal``) to each other; bucket bit-equal and
+   PyTorch version on the same inputs: roll bit-equal; span atol 1e-5 on
+   the rolled table, and on the canonical table that the main path reads
+   (``span_gather_sorted[table]``) bit-equal (``torch.equal``) to its
+   plain version and to the rolled mode; bucket bit-equal and
    bit-identical across two runs, also on 700 identical points; unroll
    atol 1e-5;
 3. times each kernel, its plain version and (where one PyTorch call
@@ -32,11 +32,12 @@ Run from the root of a checkout, with no arguments:
    times, the roll build and the span gather's rolled mode not at all
    (the main path reads the canonical table; each mode has its own launch
    count), and the loss is finite and falling;
-5. prints the kernels as one JSON line, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+5. prints the data side's results and the kernels, one JSON line each,
+   then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Phases of the other encoder paths, on the same inputs (before 4, while
-the main-path inputs are alive, and after it):
+the main-path inputs are alive, and after it), and of the data side
+(after 4, before c):
 
 a. the kernels in the modes the other paths run: the bucket with a bf16
    output (bit-equal: one rounding of the same f32 sums), the unroll on that bf16
@@ -50,7 +51,35 @@ c. the encoder microbenchmark (``scripts/microbench_encoder_torch.py``),
 d. 20 full-width training steps each of the XOR, rolled and take encoder
    paths through ``Trainer.train_step``, with the launches each requires
    (the roll build at least 20 times on the rolled path) and a finite,
-   falling loss.
+   falling loss;
+e. the data side on the card, each path driven with the launch counts
+   set to 0 just before it and read just after:
+   e1. the projector (``data/projector.py::project_angles``) reprojects
+       the 50 train views of ``data/chest_phantom.pickle`` (made by an
+       earlier JAX projector): every pixel within 1e-6 of the stored
+       projections but at most 24, all in views 16 and 34, where today's
+       JAX projector misses them too (a sample within an ulp of the
+       in-volume band's edge), and those within one boundary-voxel sample;
+   e2. ``data/generate.py`` makes the laminography scan of
+       ``configs/scans/lamino_chip.yaml`` on the card (``lamino_chip``
+       phantom, 128 x 128 x 32, parallel beam tilted 29 degrees over 360,
+       50 + 50 views) and
+       ``configs/lamino_chip.yaml`` trains one epoch on it (50 steps of
+       1024 rays x 192 samples, full width) with its epoch-0 eval;
+   e3. the real-scan path: the 187 angles of ``data/angles_real.npy``,
+       a smoothed chip phantom (256 x 256 x 64) projected on the card at
+       1024^2 x 320 samples, a unit-amplitude complex field through
+       ``data/format_real.py``, beam masks and pools from the C++ host
+       engine (``native/``, timed inside the dataset build),
+       ``configs/chest_50.yaml`` at 4096 rays with rays on the fly, 20
+       masked steps and one masked eval; then the span gather's table
+       mode, the bucket and the unroll held against their plain versions
+       as in 2-4 and timed on one 4096-ray batch of that path (786,432
+       sorted points a level), under the modes ``table_real_scan`` and
+       ``real_scan`` of the kernels line;
+   each training path must launch the span gather's table mode, the
+   bucket and the unroll in every step and the roll build and the rolled
+   mode never, with a finite, falling loss.
 
 The bucket is the tile design of ``csrc/bucket_matmul.cu`` (one block per
 1024-column tile with two searches per tile, slice blocks for runs of
@@ -104,6 +133,43 @@ PATHS = {
 }
 
 
+# Phase (e): the scan of the dataset configs/lamino_chip.yaml trains on,
+# and the real-scan path's size.
+LAMINO_SCAN = "configs/scans/lamino_chip.yaml"
+REAL_VIEWS, REAL_DET, REAL_SAMPLES, REAL_RAYS = 187, 1024, 320, 4096
+# e1: the stored chest views that today's JAX projector misses, and at how
+# many pixels in all
+E1_VIEWS_OFF, E1_PIXELS_OFF = {16, 34}, 24
+# e3: the kernels-line entries of the main path's kernels at the real-scan
+# shapes, by launch count key
+REAL_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_real_scan]",
+              "bucket_grad_matmul": "bucket_grad_matmul[real_scan]",
+              "unroll_reduce_fm": "unroll_reduce_fm[real_scan]"}
+
+
+def check_launches(where: str, launches, steps: int, needs=MAIN_NEEDS) -> None:
+    """Fail unless each kernel that ``needs`` marks True launched at least
+    once a step in ``steps`` steps, and each marked False never."""
+    for kname, every_step in needs.items():
+        n = int(launches.get(kname, 0))
+        if (n < steps) if every_step else n:
+            raise AssertionError(f"{where}: {kname} launched {n} times in "
+                                 f"{steps} steps")
+
+
+def falling(where: str, losses, k: int):
+    """Mean of the first and the last ``k`` losses; fail unless every loss
+    is finite and the mean fell."""
+    losses = np.asarray(losses, np.float64)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{where}: bad losses {losses}")
+    first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+    if not last < first:
+        raise AssertionError(f"{where}: loss did not fall: first-{k} mean {first}, "
+                             f"last-{k} mean {last}")
+    return first, last
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -115,6 +181,430 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def encoder_points(field, rays, n_samples: int, gen):
+    """The encoder's inputs for one batch of rays, as the renderer makes
+    them: stratified samples clamped into the field's bound and scaled to
+    [0, 1]; [rays * n_samples, 3]."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.ops.sampling import (
+        stratified_z_vals)
+    z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], n_samples, True, gen)
+    b = field.bound - 1e-6
+    pts = torch.clamp(rays[:, None, :3] + rays[:, None, 3:6] * z[..., None], -b, b)
+    return torch.clamp((pts.reshape(-1, 3) + field.bound) / (2.0 * field.bound), 0, 1)
+
+
+def sorted_stream(spec, x01):
+    """The main path's sorted stream of ``x01``: keys [L, B] and packed
+    fracs [L, 1, B]."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
+    from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
+        base_and_frac_t)
+    base_t, frac_t = base_and_frac_t(spec, x01)
+    sk, perm = torch.sort(base_t, dim=-1, stable=True)
+    return sk, torch.gather(sg.pack_frac_t(frac_t), 1, perm)[:, None, :].contiguous()
+
+
+def index_add_call(sk, sf, grads, table_size: int):
+    """The one PyTorch call that computes the bucket's gradient (without
+    the wrap extension): ``index_add_`` of every update's payload."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import (
+        bucket_matmul as bm)
+    L, B = sk.shape
+    pay = bm._payload(sf, grads).permute(0, 2, 1).reshape(L * B, -1)
+    flat = (sk.long() + torch.arange(L, device=sk.device)[:, None] * table_size).reshape(-1)
+    return lambda: torch.zeros((L * table_size, pay.shape[1]),
+                               device=sk.device).index_add_(0, flat, pay)
+
+
+def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
+                      plain_iters: int = 20) -> None:
+    """The kernels of a training path's step on one batch's sorted stream
+    (keys ``sk``, packed fracs ``spf``, f32 ``table``, ``grads``): the
+    span gather's table mode bit-equal to the rolled mode and to its plain
+    version, the bucket bit-equal to its plain version and bit-identical
+    twice, the unroll of its gradient atol 1e-5; each timed by ``record``
+    under ``span_mode`` (the span gather) and ``mode`` (the bucket and the
+    unroll; None for their main entries)."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import (
+        bucket_matmul as bm)
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import (
+        roll_kernels as rk)
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
+    from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
+        corner_offsets)
+    L, S, C = spec.num_levels, spec.table_size, spec.level_dim
+    D, K = spec.input_dim, 1 << spec.input_dim
+    F, E, B = K * C, rk._PAD, sk.shape[1]
+    bf16 = torch.bfloat16
+
+    # span gather, table mode: the canonical f32 table at the corners'
+    # offsets, rounded to bf16 as the roll rounds
+    out = sg.span_gather_sorted_table(sk, spf, table, spec, bf16)
+    rolled = sg.span_gather_sorted(sk, spf, rk.roll_broadcast_fm(table, spec, bf16),
+                                   input_dim=D)
+    plain = sg.span_gather_sorted_table_plain(sk, spf, table, spec, bf16)
+    torch.cuda.synchronize()
+    err = (out - plain).abs().max()
+    if not torch.equal(out, rolled):
+        raise AssertionError(f"span_gather_sorted[{span_mode}] is not bit-equal to "
+                             f"the rolled mode")
+    if not torch.equal(out, plain):
+        raise AssertionError(f"span_gather_sorted[{span_mode}] is not bit-equal to its "
+                             f"plain version (max abs diff {float(err)})")
+    del out, rolled, plain
+    # bound: keys, packed fracs and output, and the canonical rows that some
+    # corner of some key touches, each read once.  Beside it, the 32-byte
+    # sectors each mode must fetch at least once: of every rolled row, the
+    # sectors that hold a key's column; of the canonical table, those that
+    # hold a touched row.
+    offs = torch.as_tensor(corner_offsets(spec), device=sk.device).long()
+    distinct = touched = sec_rolled = sec_table = 0
+    for l in range(L):
+        uk = torch.unique_consecutive(sk[l]).long()
+        rows = torch.unique((uk[:, None] + offs[l][None, :]) % S)
+        distinct += int(uk.numel())
+        touched += int(rows.numel())
+        sec_rolled += int(torch.unique_consecutive(uk // 16).numel())   # bf16 columns
+        sec_table += int(torch.unique_consecutive(rows // (32 // (C * 4))).numel())
+    print(f"span_gather_sorted[{span_mode}]: {B} points a level, {distinct} distinct "
+          f"keys, {touched} canonical rows touched (of {L * S}); 32-byte sectors to "
+          f"fetch: rolled table {sec_rolled * F * 32 / 1e6:.1f} MB ({F} rows), "
+          f"canonical table {sec_table * 32 / 1e6:.1f} MB, beside "
+          f"{L * B * 4 * (2 + C) / 1e6:.1f} MB of keys, fracs and output")
+    record("span_gather_sorted", err,
+           lambda: sg.span_gather_sorted_table(sk, spf, table, spec, bf16),
+           lambda: sg.span_gather_sorted_table_plain(sk, spf, table, spec, bf16), None,
+           L * B * 4 * 2 + touched * C * 4 + L * C * B * 4,
+           L * B * (K * D + 2 * K * C), mode=span_mode, plain_iters=plain_iters)
+
+    # bucket: bit-equal to plain, bit-identical twice
+    sf = sg.unpack_frac_t(spf[:, 0])
+    kw = dict(table_size=S, input_dim=D, extend_cols=E)
+    g1 = bm.bucket_grad_matmul(sk, sf, grads, **kw)
+    g2 = bm.bucket_grad_matmul(sk, sf, grads, **kw)
+    g_plain = bm.bucket_grad_matmul_plain(sk, sf, grads, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(g1, g2):
+        raise AssertionError("bucket_grad_matmul is not bit-identical across runs")
+    err = (g1 - g_plain).abs().max()
+    if not torch.equal(g1, g_plain):
+        raise AssertionError(f"bucket_grad_matmul is not bit-equal to its plain "
+                             f"version (max abs diff {float(err)})")
+    del g2, g_plain
+    # bound of the tile design: keys, fracs and grads read once, the
+    # wrap-extended f32 gradient written once (empty columns as zeros)
+    record("bucket_grad_matmul", err,
+           lambda: bm.bucket_grad_matmul(sk, sf, grads, **kw),
+           lambda: bm.bucket_grad_matmul_plain(sk, sf, grads, **kw),
+           index_add_call(sk, sf, grads, S),
+           L * B * 4 * (1 + D + C) + L * F * (S + E) * 4,
+           L * B * (K * D + 2 * K * C), mode=mode, plain_iters=plain_iters)
+
+    # unroll of that gradient: atol 1e-5
+    u = rk.unroll_reduce_fm(g1, spec, C)
+    err = (u - rk.unroll_reduce_fm_plain(g1, spec, C)).abs().max()
+    if not err <= 1e-5:
+        raise AssertionError(f"unroll_reduce_fm differs by {float(err)}")
+    record("unroll_reduce_fm", err,
+           lambda: rk.unroll_reduce_fm(g1, spec, C),
+           lambda: rk.unroll_reduce_fm_plain(g1, spec, C), None,
+           L * F * S * 4 + L * S * C * 4, L * S * C * (K - 1), mode=mode,
+           plain_iters=plain_iters)
+
+
+def timed(fn):
+    """``fn()`` and its wall time in seconds, the card synchronised
+    before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def data_side(dev, record, entry_of) -> dict:
+    """Phase (e): the projector, the generator, the formatter and the C++
+    host engine on the card's paths, and the main path's kernels at the
+    real-scan path's shapes (timed by ``record``); returns the ``data``
+    JSON line."""
+    import torch
+
+    out = {"projector_chest": project_chest(dev)}
+    torch.cuda.empty_cache()
+    out["lamino_chip"] = lamino_chip(dev, entry_of)
+    torch.cuda.empty_cache()
+    out["real_scan"] = real_scan(dev, record, entry_of)
+    return out
+
+
+def project_chest(dev) -> dict:
+    """e1: the projector on the 50 chest views."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch import geometry as G
+    from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
+        load_pickle)
+    from neuralvolumetricreconstructionformedicalimages_torch.data.projector import (
+        project_angles)
+
+    # e1. the projector at full size: the 50 chest views against the
+    # stored projections, made by an earlier JAX projector.  Pixels agree
+    # to 1e-6, except where a sample lies within an ulp of the edge of the
+    # in-volume band: there one program adds a boundary voxel's sample and
+    # the other not.  Today's JAX projector differs from the stored views
+    # so at 24 pixels, all in views 16 and 34, by up to 5.81e-4 (tests/
+    # test_torch_data_gen.py::test_stored_chest_views_against_both_projectors),
+    # so pixels over 1e-6 may lie only in those views, no more than 24 of
+    # them, each within one such sample.
+    chest = load_pickle("data/chest_phantom.pickle")
+    geo = G.ConeGeometry.from_dict(chest)
+    angles = np.asarray(chest["train"]["angles"], np.float32)
+    vol = torch.as_tensor(chest["image"], dtype=torch.float32, device=dev)
+    project_angles(vol, geo, angles[:1])                       # warm-up
+    proj, wall = timed(lambda: project_angles(vol, geo, angles))
+    stored = chest["train"]["projections"]
+    err = np.abs(proj.cpu().numpy() - stored)
+    top = float(np.abs(stored).max())
+    near, far = G.get_near_far(geo)
+    n_samples = 2 * max(geo.nVoxel)
+    d_max = float(G.rays_for_angle(geo, 0.0, dev)[1].norm(dim=-1).max())
+    one_sample = float(chest["image"].max()) * (far - near) / (n_samples - 1) * d_max
+    over = err > 1e-6
+    views_over = sorted(int(v) for v in np.nonzero(over.any(axis=(1, 2)))[0])
+    print(f"e1 projector: {len(angles)} chest views of {geo.nDetector} from "
+          f"{geo.nVoxel} x {n_samples} samples in {wall:.3f} s "
+          f"({len(angles) / wall:.1f} views/s); against the stored projections "
+          f"(max {top:.4g}): max abs err {err.max():.4g}, {int(over.sum())} of "
+          f"{err.size} pixels over 1e-6 (views {views_over}), one boundary "
+          f"sample {one_sample:.4g}")
+    if not (set(views_over) <= E1_VIEWS_OFF and over.sum() <= E1_PIXELS_OFF
+            and err.max() <= one_sample + 1e-6):
+        raise AssertionError("projector: the chest views differ from the stored ones")
+    return dict(
+        views=len(angles), detector=list(geo.nDetector), volume=list(geo.nVoxel),
+        samples=n_samples, max_abs_err=float(err.max()), max_value=top,
+        pixels_over_1e6=int(over.sum()), views_over_1e6=views_over,
+        one_sample_bound=one_sample, wall_s=wall, views_per_s=len(angles) / wall)
+
+
+def lamino_chip(dev, entry_of) -> dict:
+    """e2: the lamino_chip scan generated on the card, and one epoch of
+    ``configs/lamino_chip.yaml`` on it."""
+    import importlib
+
+    import torch
+    import yaml
+
+    from neuralvolumetricreconstructionformedicalimages_torch.config import load_config
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+    from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
+    gen = importlib.import_module(
+        "neuralvolumetricreconstructionformedicalimages_torch.data.generate")
+
+    # e2. configs/lamino_chip.yaml on a dataset the generator makes on the card
+    with open(LAMINO_SCAN) as f:
+        scan = yaml.safe_load(f)
+    data, gen_s = timed(lambda: gen.generate(scan, phantom="lamino_chip", seed=0,
+                                             device=dev))
+    path = os.path.join("logs", "chip_smoke", "lamino_chip.pickle")
+    gen.save(data, path)
+    tp = data["train"]["projections"]
+    lit, pmax = float((tp != 0).mean()), float(tp.max())
+    print(f"e2 generate: lamino_chip {scan['nVoxel']}, {scan['numTrain']}"
+          f"+{scan['numVal']} views in {gen_s:.3f} s; {lit:.4f} of the pixels "
+          f"lit, projection max {pmax:.4g}; saved {path}")
+    lcfg = load_config("configs/lamino_chip.yaml")
+    lcfg["exp"]["datadir"] = path
+    lcfg["train"]["epoch"] = 0     # one epoch: 50 views -> 50 steps
+    lcfg["log"]["i_save"] = 0      # no checkpoint
+    lcfg["log"]["i_eval"] = 1      # its epoch-0 eval
+    tr = T.Trainer(lcfg, workdir=os.path.join("logs", "chip_smoke_lamino"), device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    _, wall = timed(tr.start)
+    launches = dict(_build.LAUNCHES)
+    check_launches("lamino_chip", launches, 50)
+    first, last = falling("lamino_chip", tr.losses, 10)
+    step_ms = float(np.median(tr.step_ms))
+    ev = tr.eval_metrics[0]
+    n_rays = tr.n_rays
+    res = dict(
+        config="configs/lamino_chip.yaml", scan=scan, generate_s=gen_s,
+        lit_fraction=lit, projection_max=pmax, steps=len(tr.losses), wall_s=wall,
+        median_step_ms=step_ms, rays_per_s=n_rays / (step_ms / 1e3),
+        loss_first10=first, loss_last10=last, eval_epoch0=ev, launches=launches)
+    print(f"e2 lamino_chip: {len(tr.losses)} steps in {wall:.1f} s wall (eval "
+          f"included), median step {step_ms:.3f} ms, {n_rays / (step_ms / 1e3):.0f} "
+          f"rays/s, loss first-10 {first:.6g} last-10 {last:.6g}, launches {launches}")
+    print(f"e2 eval (epoch 0): proj_psnr {ev['proj_psnr']:.3f} dB, psnr_3d "
+          f"{ev['psnr_3d']:.3f} dB, ssim_3d {ev['ssim_3d']:.4f}")
+    for kname in MAIN_NEEDS:
+        entry_of(kname).setdefault("path_launches", {})["lamino_chip"] = \
+            int(launches.get(kname, 0))
+    return res
+
+
+def real_scan(dev, record, entry_of) -> dict:
+    """e3: the 187-view real-scan laminography path, and the main path's
+    kernels at its shapes."""
+    import torch
+    from scipy.ndimage import gaussian_filter
+
+    from neuralvolumetricreconstructionformedicalimages_torch import geometry as G
+    from neuralvolumetricreconstructionformedicalimages_torch import native
+    from neuralvolumetricreconstructionformedicalimages_torch.config import (
+        load_config, with_defaults)
+    from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
+        gather_view_batch, make_dataset)
+    from neuralvolumetricreconstructionformedicalimages_torch.data.format_real import (
+        format_real_data)
+    from neuralvolumetricreconstructionformedicalimages_torch.data.phantoms import (
+        get_phantom)
+    from neuralvolumetricreconstructionformedicalimages_torch.data.projector import (
+        project_angles)
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+    from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
+        StepTimer)
+
+    # e3. the real-scan laminography path: the 187 real angles, a smoothed
+    # chip phantom projected on the card at 1024^2, a unit-amplitude complex
+    # field through the formatter, a beam mask from the C++ engine, rays on
+    # the fly, masked loss and masked eval
+    angles_deg = np.rad2deg(np.load("data/angles_real.npy").astype(np.float64))[:REAL_VIEWS]
+    vol = gaussian_filter(get_phantom("lamino_chip", (256, 256, 64)).astype(np.float32), 1.0)
+    rgeo = G.ConeGeometry(
+        DSD=1.5, DSO=1.0, nDetector=(REAL_DET, REAL_DET), dDetector=(0.001, 0.001),
+        nVoxel=(256, 256, 64), dVoxel=(0.0015, 0.0015, 0.0015),
+        mode="parallel", tilt_angle=29.0)
+    proj, gen_s = timed(lambda: project_angles(
+        vol, rgeo, np.deg2rad(angles_deg).astype(np.float32), REAL_SAMPLES, device=dev))
+    proj = proj.cpu().numpy()
+    H = W = REAL_DET
+    phase_max = 0.9 * float(proj.max()) / max(1e-6, float(vol.max()))
+    phase = proj / max(1e-6, proj.max()) * phase_max
+    yy, xx = np.mgrid[0:H, 0:W]
+    beam = (np.hypot(yy - H / 2, xx - W / 2) < 0.48 * H).astype(np.float32)
+    cplx = (beam * np.exp(1j * phase)).astype(np.complex64)
+    del proj, phase
+    t0 = time.perf_counter()
+    data = format_real_data(np.rot90(cplx, k=-1, axes=(1, 2)), angles_deg,
+                            tilt_angle=29.0, n_slices=64)
+    data.update(nVoxel=[256, 256, 64], dVoxel=[1.5, 1.5, 1.5], offOrigin=[0, 0, 0],
+                image=vol)
+    format_s = time.perf_counter() - t0
+    del cplx
+    if not native.available():
+        raise AssertionError(f"the C++ host engine did not build: {native.load_error()}")
+    cfg = with_defaults(load_config("configs/chest_50.yaml"))
+    cfg["exp"].update(expname="chip_smoke_real", datadir="(in-memory)")
+    cfg["train"].update(resume=False, n_rays=REAL_RAYS)
+    cfg["log"].update(i_eval=0, i_save=0, eval_mask=True)
+    # the datasets are built in memory, and the engine's calls that
+    # make_dataset makes are timed where they run
+    engine_s = {"ptycho_mask_batch": [], "build_pools": []}
+
+    def timed_engine(fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            engine_s[fn.__name__].append(time.perf_counter() - t0)
+            return res
+        return call
+
+    saved = (T.load_dataset, native.ptycho_mask_batch, native.build_pools)
+    T.load_dataset = lambda path, split, n_rays, **kw: make_dataset(
+        data, split, n_rays=n_rays, **kw)
+    native.ptycho_mask_batch = timed_engine(saved[1])
+    native.build_pools = timed_engine(saved[2])
+    try:
+        tr, load_s = timed(lambda: T.Trainer(
+            cfg, workdir=os.path.join("logs", "chip_smoke_real"), device=dev))
+        tr.eval_dset = make_dataset(data, "val", n_rays=REAL_RAYS, device=dev)
+    finally:
+        T.load_dataset, native.ptycho_mask_batch, native.build_pools = saved
+    # the train split's calls come first
+    mask_s, pools_s = engine_s["ptycho_mask_batch"][0], engine_s["build_pools"][0]
+    counts = tr.train_dset.pool_counts
+    print(f"e3 generate: {REAL_VIEWS} views of {REAL_DET}^2 x {REAL_SAMPLES} samples "
+          f"from (256, 256, 64) in {gen_s:.2f} s ({REAL_VIEWS / gen_s:.1f} views/s); "
+          f"format {format_s:.2f} s; C++ engine on the train split: masks "
+          f"{mask_s:.3f} s ({float(tr.train_dset.mask.float().mean()):.4f} kept), "
+          f"pools {pools_s:.3f} s ({int(counts.min())}-{int(counts.max())} valid "
+          f"pixels a view)")
+    if tr.train_dset.ray_mode != "onthefly" or not tr.use_mask:
+        raise AssertionError(f"real scan: ray_mode {tr.train_dset.ray_mode}, "
+                             f"use_mask {tr.use_mask}")
+    views = tr._view_order(0)[:TRAIN_STEPS]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    timer = StepTimer(dev)
+    timer.tick()
+    step_losses = []
+    for v in views:
+        step_losses.append(tr.train_step(v))
+        timer.tick()
+    rlosses = torch.stack(step_losses).cpu().numpy()
+    launches = dict(_build.LAUNCHES)
+    check_launches("real scan", launches, TRAIN_STEPS)
+    first, last = falling("real scan", rlosses, 5)
+    step_ms = float(np.median(timer.step_ms()))
+    ev, eval_s = timed(lambda: tr.eval_step(tr.global_step, 0))
+    if not np.isfinite(list(ev.values())).all():
+        raise AssertionError(f"real scan: eval metrics not finite: {ev}")
+    res = dict(
+        views=REAL_VIEWS, detector=[H, W], samples=REAL_SAMPLES, generate_s=gen_s,
+        views_per_s=REAL_VIEWS / gen_s, format_s=format_s, mask_s=mask_s,
+        pools_s=pools_s, native=native.available(), dataset_s=load_s,
+        ray_mode=tr.train_dset.ray_mode, use_mask=tr.use_mask, n_rays=REAL_RAYS,
+        steps=len(rlosses), median_step_ms=step_ms,
+        rays_per_s=REAL_RAYS / (step_ms / 1e3), loss_first5=first, loss_last5=last,
+        eval=ev, eval_s=eval_s, launches=launches)
+    print(f"e3 real scan: trainer with its in-memory datasets in {load_s:.2f} s; "
+          f"ray_mode {tr.train_dset.ray_mode}, use_mask {tr.use_mask}; "
+          f"{len(rlosses)} steps of {REAL_RAYS} rays, median {step_ms:.3f} ms, "
+          f"{REAL_RAYS / (step_ms / 1e3):.0f} rays/s, loss first-5 {first:.6g} "
+          f"last-5 {last:.6g}, launches {launches}")
+    print(f"e3 masked eval ({eval_s:.2f} s): " + ", ".join(
+        f"{k} {v:.4g}" for k, v in ev.items()))
+    for kname in MAIN_NEEDS:
+        entry_of(kname).setdefault("path_launches", {})["real_scan"] = \
+            int(launches.get(kname, 0))
+
+    # the main path's kernels at this path's shapes: one 4096-ray batch of
+    # a view of the steps above, 786,432 sorted points a level (4x the main
+    # path's), held against their plain versions as phases 2-4 hold them
+    g = torch.Generator(device=dev).manual_seed(1)
+    ds = tr.train_dset
+    rays = gather_view_batch(tr._arrays, int(views[0][0]), REAL_RAYS, g, geo=ds.geo,
+                             near=ds.near, far=ds.far)["rays"]
+    spec = tr.field.encoder.grid
+    sk, spf = sorted_stream(spec, encoder_points(
+        tr.field, rays, int(cfg["render"]["n_samples"]), g))
+    del tr, ds, rays
+    torch.cuda.empty_cache()
+    table = torch.randn((spec.num_levels, spec.table_size, spec.level_dim),
+                        generator=g, device=dev)
+    grads = torch.randn((spec.num_levels, spec.level_dim, sk.shape[1]),
+                        generator=g, device=dev)
+    hold_path_kernels(record, spec, sk, spf, table, grads, "table_real_scan",
+                      "real_scan", plain_iters=3)
+    for key, mode_key in REAL_MODES.items():
+        entry_of(mode_key)["launches"] = int(launches.get(key, 0))
+    return res
+
+
 
 
 def main() -> int:
@@ -131,16 +621,17 @@ def main() -> int:
     from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
         gather_view_batch, load_dataset)
     from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
-    from neuralvolumetricreconstructionformedicalimages_torch.ops import bucket_matmul as bm
-    from neuralvolumetricreconstructionformedicalimages_torch.ops import roll_kernels as rk
-    from neuralvolumetricreconstructionformedicalimages_torch.ops import scatter_level as sl
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import (
+        bucket_matmul as bm)
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import (
+        roll_kernels as rk)
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import (
+        scatter_level as sl)
     from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
     from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
-        base_and_frac_t, corner_offsets)
+        corner_offsets)
     from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding import (
         hash_grid_indices, sorted_corner_stream)
-    from neuralvolumetricreconstructionformedicalimages_torch.ops.sampling import (
-        stratified_z_vals)
     from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
         Trainer, build_model, pin_fp32)
     from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
@@ -173,10 +664,7 @@ def main() -> int:
     dset = load_dataset(cfg["exp"]["datadir"], "train", n_rays, device=dev)
     batch = gather_view_batch(dset.arrays(), 0, n_rays, gen)
     rays = batch["rays"]
-    z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], n_samples, True, gen)
-    b = field.bound - 1e-6
-    pts = torch.clamp(rays[:, None, :3] + rays[:, None, 3:6] * z[..., None], -b, b)
-    x01 = torch.clamp((pts.reshape(-1, 3) + field.bound) / (2.0 * field.bound), 0, 1)
+    x01 = encoder_points(field, rays, n_samples, gen)
     B = x01.shape[0]
     table = torch.randn((L, S, C), generator=gen, device=dev)
     grads = torch.randn((L, C, B), generator=gen, device=dev)
@@ -247,11 +735,9 @@ def main() -> int:
            L * S * C * 4 + L * F * S * 2, 0)
     del idx, src, R_plain
 
-    # ---- 2. span_gather_sorted (packed fracs, bf16 table), both modes:
-    # atol 1e-5 against the plain version, the modes bit-equal ----
-    base_t, frac_t = base_and_frac_t(spec, x01)
-    sk, perm = torch.sort(base_t, dim=-1, stable=True)
-    spf = torch.gather(sg.pack_frac_t(frac_t), 1, perm)[:, None, :].contiguous()
+    # ---- 2. span_gather_sorted (packed fracs, bf16 table), the rolled
+    # mode: atol 1e-5 against the plain version ----
+    sk, spf = sorted_stream(spec, x01)
     out = sg.span_gather_sorted(sk, spf, R, input_dim=D)
     out_plain = sg.span_gather_sorted_plain(sk, spf, R, input_dim=D)
     err = (out - out_plain).abs().max()
@@ -263,57 +749,13 @@ def main() -> int:
            lambda: sg.span_gather_sorted_plain(sk, spf, R, input_dim=D), None,
            L * B * 4 * 2 + distinct * F * 2 + L * C * B * 4,
            L * B * (K * D + 2 * K * C))
-    # table mode (the main path): the canonical f32 table at the corners'
-    # offsets, rounded to bf16 as the roll rounds
-    out_t = sg.span_gather_sorted_table(sk, spf, table, spec, torch.bfloat16)
-    torch.cuda.synchronize()
-    if not torch.equal(out_t, out):
-        raise AssertionError("span_gather_sorted[table] is not bit-equal to the "
-                             "rolled mode")
-    err = (out_t - sg.span_gather_sorted_table_plain(
-        sk, spf, table, spec, torch.bfloat16)).abs().max()
-    if not err <= 1e-5:
-        raise AssertionError(f"span_gather_sorted[table] differs by {float(err)}")
-    # bound: keys, packed fracs and output, and the canonical rows that some
-    # corner of some key touches, each read once.  Beside it, the 32-byte
-    # sectors each mode must fetch at least once: of every rolled row, the
-    # sectors that hold a key's column; of the canonical table, those that
-    # hold a touched row.
-    touched = sec_rolled = sec_table = 0
-    for l in range(L):
-        uk = torch.unique_consecutive(sk[l]).long()
-        rows = torch.unique((uk[:, None] + offs[l][None, :]) % S)
-        touched += int(rows.numel())
-        sec_rolled += int(torch.unique_consecutive(uk // (32 // R.element_size())).numel())
-        sec_table += int(torch.unique_consecutive(rows // (32 // (C * 4))).numel())
-    sector_mb = {"rolled": sec_rolled * F * 32 / 1e6, "table": sec_table * 32 / 1e6}
-    print(f"span_gather_sorted[table]: {distinct} distinct keys, {touched} "
-          f"canonical rows touched (of {L * S}); 32-byte sectors to fetch: "
-          f"rolled table {sector_mb['rolled']:.1f} MB ({F} rows), canonical "
-          f"table {sector_mb['table']:.1f} MB, beside "
-          f"{L * B * 4 * (2 + C) / 1e6:.1f} MB of keys, fracs and output")
-    record("span_gather_sorted", err,
-           lambda: sg.span_gather_sorted_table(sk, spf, table, spec, torch.bfloat16),
-           lambda: sg.span_gather_sorted_table_plain(sk, spf, table, spec,
-                                                     torch.bfloat16), None,
-           L * B * 4 * 2 + touched * C * 4 + L * C * B * 4,
-           L * B * (K * D + 2 * K * C), mode="table")
-    del out_t
+    del R, out, out_plain
 
-    # ---- 3. bucket_grad_matmul: bit-equal to plain, bit-identical twice ----
+    # ---- 2-4. the main path's kernels on its batch: the span gather's
+    # table mode, the bucket and the unroll ----
+    hold_path_kernels(record, spec, sk, spf, table, grads, "table", None)
     sf = sg.unpack_frac_t(spf[:, 0])
     kw = dict(table_size=S, input_dim=D, extend_cols=E)
-    g1 = bm.bucket_grad_matmul(sk, sf, grads, **kw)
-    g2 = bm.bucket_grad_matmul(sk, sf, grads, **kw)
-    g_plain = bm.bucket_grad_matmul_plain(sk, sf, grads, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(g1, g2):
-        raise AssertionError("bucket_grad_matmul is not bit-identical across runs")
-    err = (g1 - g_plain).abs().max()
-    if not torch.equal(g1, g_plain):
-        raise AssertionError(f"bucket_grad_matmul is not bit-equal to its plain "
-                             f"version (max abs diff {float(err)})")
-    del g2, g_plain
     # duplicate-heavy: 700 identical points own one column
     dk = torch.full((L, 700), 12345, dtype=torch.int32, device=dev)
     df = torch.full((L, D, 700), 0.625, device=dev)
@@ -331,30 +773,8 @@ def main() -> int:
     print(f"bucket_grad_matmul, 700 identical points: max_abs_err {dup_err:.3g}, "
           f"kernel {dup_ms:.4f} ms")
     del d1, dplain
-    pay = bm._payload(sf, grads).permute(0, 2, 1).reshape(L * B, F)
-    flat_keys = (sk.long() + torch.arange(L, device=dev)[:, None] * S).reshape(-1)
-    # bound of the tile design: keys, fracs and grads read once, the
-    # wrap-extended f32 gradient written once (empty columns as zeros)
-    record("bucket_grad_matmul", err,
-           lambda: bm.bucket_grad_matmul(sk, sf, grads, **kw),
-           lambda: bm.bucket_grad_matmul_plain(sk, sf, grads, **kw),
-           lambda: torch.zeros((L * S, F), device=dev).index_add_(0, flat_keys, pay),
-           L * B * 4 * (1 + D + C) + L * F * (S + E) * 4,
-           L * B * (K * D + 2 * K * C))
     results["bucket_grad_matmul"]["duplicate_heavy"] = dict(
         points=700, max_abs_err=dup_err, ms=dup_ms)
-
-    # ---- 4. unroll_reduce_fm: atol 1e-5 ----
-    u = rk.unroll_reduce_fm(g1, spec, C)
-    u_plain = rk.unroll_reduce_fm_plain(g1, spec, C)
-    err = (u - u_plain).abs().max()
-    if not err <= 1e-5:
-        raise AssertionError(f"unroll_reduce_fm differs by {float(err)}")
-    record("unroll_reduce_fm", err,
-           lambda: rk.unroll_reduce_fm(g1, spec, C),
-           lambda: rk.unroll_reduce_fm_plain(g1, spec, C), None,
-           L * F * S * 4 + L * S * C * 4, L * S * C * (K - 1))
-    del g1, u, u_plain, R, out, out_plain
 
     # ---- a. the modes of the other encoder paths ----
     # bucket with a bf16 output (the rolled backward): both round the same
@@ -371,10 +791,10 @@ def main() -> int:
     record("bucket_grad_matmul", (h1.float() - h_plain.float()).abs().max(),
            lambda: bm.bucket_grad_matmul(sk, sf, grads, **kwb),
            lambda: bm.bucket_grad_matmul_plain(sk, sf, grads, **kwb),
-           lambda: torch.zeros((L * S, F), device=dev).index_add_(0, flat_keys, pay),
+           index_add_call(sk, sf, grads, S),
            L * B * 4 * (1 + D + C) + L * F * (S + E) * 2,
            L * B * (K * D + 2 * K * C), mode="bf16_out", plain_iters=3)
-    del h_plain, pay, flat_keys
+    del h_plain
     # unroll of that bf16 gradient: atol 1e-5
     u = rk.unroll_reduce_fm(h1, spec, C)
     err = (u - rk.unroll_reduce_fm_plain(h1, spec, C)).abs().max()
@@ -434,7 +854,7 @@ def main() -> int:
            lambda: sl.scatter_level_plain(sidx, spay, S),
            lambda: torch.zeros((S, C), device=dev).index_add_(0, sidx.long(), spay),
            NS * (4 + 4 * C) + S * C * 4, NS * C)
-    del s1, s_plain, sidx, spay, ipay, iidx, sk, perm, spf, sf, base_t, frac_t
+    del s1, s_plain, sidx, spay, ipay, iidx, sk, spf, sf
     del table, grads, field, dset
     torch.cuda.empty_cache()
 
@@ -453,19 +873,12 @@ def main() -> int:
     steps = len(trainer.losses)
     print(f"training: {steps} steps in {wall:.1f} s wall (eval included), "
           f"launches {launches}")
-    for kname, every_step in MAIN_NEEDS.items():
-        n = int(launches.get(kname, 0))
-        if (n < 50) if every_step else n:
-            raise AssertionError(f"{kname} launched {n} times in the main path's "
-                                 f"{steps} steps")
-        entry_of(kname)["launches"] = n
-    losses = trainer.losses
-    if steps < 50 or not np.isfinite(losses).all():
-        raise AssertionError(f"bad losses: {losses}")
-    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    if not last < first:
-        raise AssertionError(f"loss did not fall: first-10 mean {first}, "
-                             f"last-10 mean {last}")
+    if steps < 50:
+        raise AssertionError(f"the main path ran {steps} steps, not 50")
+    check_launches("main path", launches, 50)
+    for kname in MAIN_NEEDS:
+        entry_of(kname)["launches"] = int(launches.get(kname, 0))
+    first, last = falling("main path", trainer.losses, 10)
     step_ms = float(np.median(trainer.step_ms))
     ev = trainer.eval_metrics[0]
     print(f"loss: first-10 mean {first:.6g}, last-10 mean {last:.6g}")
@@ -474,6 +887,10 @@ def main() -> int:
     print(f"eval (epoch 0): proj_psnr {ev['proj_psnr']:.3f} dB, "
           f"psnr_3d {ev['psnr_3d']:.3f} dB, ssim_3d {ev['ssim_3d']:.4f}")
     del trainer
+    torch.cuda.empty_cache()
+
+    # ---- e. the data side on the card ----
+    data_line = data_side(dev, record, entry_of)
     torch.cuda.empty_cache()
 
     # ---- c. the encoder microbenchmark (the path of scatter_level) ----
@@ -510,17 +927,8 @@ def main() -> int:
         plosses = torch.stack(step_losses).cpu().numpy()
         pms = timer.step_ms()
         plaunch = dict(_build.LAUNCHES)
-        for kname, every_step in need.items():
-            n = int(plaunch.get(kname, 0))
-            if (n < TRAIN_STEPS) if every_step else n:
-                raise AssertionError(f"{pname} path: {kname} launched {n} times "
-                                     f"in {TRAIN_STEPS} steps")
-        if not np.isfinite(plosses).all():
-            raise AssertionError(f"{pname} path: bad losses {plosses}")
-        pf, pl = float(plosses[:5].mean()), float(plosses[-5:].mean())
-        if not pl < pf:
-            raise AssertionError(f"{pname} path: loss did not fall: first-5 mean "
-                                 f"{pf}, last-5 mean {pl}")
+        check_launches(f"{pname} path", plaunch, TRAIN_STEPS, need)
+        pf, pl = falling(f"{pname} path", plosses, 5)
         pmed = float(np.median(pms))
         paths[pname] = dict(encoder=enc_over, steps=len(plosses), median_step_ms=pmed,
                             rays_per_s=n_rays / (pmed / 1e3), loss_first5=pf,
@@ -544,6 +952,7 @@ def main() -> int:
             entry["max_err"] = entry["max_abs_err"]
             entry["kernel_ms"] = entry["ms"]
         line.append(r)
+    print(json.dumps({"data": data_line, "card": smi}))
     print(json.dumps({"kernels": line, "train": {
         "config": cfg_path, "steps": steps, "median_step_ms": step_ms,
         "rays_per_s": n_rays / (step_ms / 1e3), "loss_first10": first,

@@ -1,7 +1,6 @@
-"""Data subsystem: pickle ingestion and device-resident ray sampling.
-
-Data generation, the forward projector and the real-data formatter are
-not ported yet (ROADMAP.md, Queue 1 item 4)."""
+"""Data subsystem: pickle ingestion, device-resident ray sampling, the
+forward projector, analytic phantoms, the synthetic generator and the
+real-data formatter."""
 
 from .dataset import (  # noqa: F401
     ProjectionDataset,
@@ -10,3 +9,7 @@ from .dataset import (  # noqa: F401
     load_pickle,
     make_dataset,
 )
+from .projector import project_angles, trilinear_sample  # noqa: F401
+from .phantoms import PHANTOMS, get_phantom  # noqa: F401
+from .generate import add_ct_noise, generate  # noqa: F401
+from .format_real import format_real_data  # noqa: F401

@@ -1,11 +1,14 @@
-"""Config-driven loss selection (``cfg["train"]["loss"]``).
+"""Loss calculators and config-driven loss selection (``cfg["train"]["loss"]``).
 
-Port of the JAX ``losses.py::get_loss_fn`` registry.  ``train.loss`` names
-a primary per-ray term, optionally composed with additive regularizers via
-``+``, e.g. ``"mse"``, ``"huber"``, ``"mse+small"``, ``"l1+tvd:0.05"``.
-Masking is a mask-weighted mean of the elementwise loss, the same estimator
-as selecting the masked rays.  The single-loss calculators of the JAX
-module are not ported yet (ROADMAP.md, Queue 1 item 6).
+Port of the JAX ``losses.py``:
+
+- the single-loss calculators: each takes a ``loss`` dict, adds its term
+  into ``loss["loss"]`` and records the component under its own key;
+- ``masked_mse``: a mask-weighted mean, the same estimator as selecting
+  the masked rays;
+- ``get_loss_fn``: ``train.loss`` names a primary per-ray term, optionally
+  composed with additive regularizers via ``+``, e.g. ``"mse"``,
+  ``"huber"``, ``"mse+small"``, ``"l1+tvd:0.05"``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,190 @@ import torch
 
 def _phase01(x):
     return (torch.angle(x) + math.pi) / (2 * math.pi)
+
+
+def _gmean(x, mask=None):
+    """Mean of ``x``, or its ``mask``-weighted mean."""
+    if mask is None:
+        return torch.mean(x)
+    m = mask.to(x.dtype)
+    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def fourier_transform(x):
+    return torch.fft.fft2(x)
+
+
+def inverse_fourier_transform(x):
+    return torch.fft.ifft2(x)
+
+
+def masked_mse(pred, target, mask=None):
+    """Mean squared error over ``mask``-selected entries (static-shaped):
+    ``mean((target[mask] - pred[mask])**2)`` without dynamic shapes.
+    ``mask`` is float/bool broadcastable to pred."""
+    return _gmean((target - pred) ** 2, mask)
+
+
+def calc_mse_loss(loss, x, y, tv_loss=None):
+    """Primary MSE loss, plus ``tv_loss`` when given."""
+    loss_mse = torch.mean((x - y) ** 2)
+    loss["loss"] = loss.get("loss", 0.0) + loss_mse
+    loss["loss_mse"] = loss_mse
+    if tv_loss is not None:
+        loss["loss"] = loss["loss"] + tv_loss
+        loss["tv_loss"] = tv_loss
+    return loss
+
+
+def calc_mse_loss_mask(loss, x, y, mask=None):
+    """Masked MSE, static-shaped."""
+    loss_mse = masked_mse(y, x, mask)
+    loss["loss"] = loss.get("loss", 0.0) + loss_mse
+    loss["loss_mse"] = loss_mse
+    return loss
+
+
+def calc_phase_only_loss(loss, x, y):
+    """Phase-normalized MSE for complex fields."""
+    l = torch.mean((_phase01(x) - _phase01(y)) ** 2)
+    loss["loss"] = loss.get("loss", 0.0) + l
+    loss["phase_loss"] = l
+    return loss
+
+
+def calc_hinge_loss(loss, x, y):
+    """Hinge loss."""
+    l = torch.mean(torch.clamp(1 - x * y, min=0))
+    loss["loss"] = loss.get("loss", 0.0) + l
+    loss["loss_hinge"] = l
+    return loss
+
+
+def calc_mse_loss_with_gradient(loss, x, y, mask=None, lambda_grad=0.1):
+    """MSE + finite-difference gradient regularizer (2D inputs)."""
+    if mask is not None:
+        x = x * mask
+        y = y * mask
+    loss_mse = torch.mean((x - y) ** 2)
+    gx_x, gx_y = x[:, 1:] - x[:, :-1], x[1:, :] - x[:-1, :]
+    gy_x, gy_y = y[:, 1:] - y[:, :-1], y[1:, :] - y[:-1, :]
+    loss_grad = torch.mean((gx_x - gy_x) ** 2) + torch.mean((gx_y - gy_y) ** 2)
+    loss["loss_mse"] = loss_mse
+    loss["loss_grad"] = loss_grad
+    loss["loss"] = loss.get("loss", 0.0) + loss_mse + lambda_grad * loss_grad
+    return loss
+
+
+def calc_huber_loss(loss, x, y, delta=1.0):
+    """Huber loss."""
+    diff = x - y
+    ad = torch.abs(diff)
+    l = torch.mean(torch.where(ad <= delta, 0.5 * diff ** 2,
+                               delta * (ad - 0.5 * delta)))
+    loss["loss"] = loss.get("loss", 0.0) + l
+    loss["loss_huber"] = l
+    return loss
+
+
+def calc_zero_loss(loss, pred, real_data, threshold=1e-5, weight=1.0):
+    """Penalize non-zero predictions where the data is ~0."""
+    zero_region = (torch.abs(real_data) <= threshold).to(pred.dtype)
+    l = weight * torch.mean(zero_region * pred ** 2)
+    loss["loss"] = loss.get("loss", 0.0) + l
+    loss["loss_zero"] = l
+    return loss
+
+
+def calc_small_loss(loss, pred, weight=1.0):
+    """Global L2 shrinkage toward zero predictions."""
+    l = weight * torch.mean(pred ** 2)
+    loss["loss"] = loss.get("loss", 0.0) + l
+    loss["loss_small"] = l
+    return loss
+
+
+def calc_tv_loss_3d(loss, x, k):
+    """3D total variation, L1, per voxel."""
+    if x.ndim != 3:
+        raise ValueError(f"Expected 3D field, got ndim={x.ndim}")
+    n1, n2, n3 = x.shape
+    tv = (
+        torch.abs(x[1:] - x[:-1]).sum()
+        + torch.abs(x[:, 1:] - x[:, :-1]).sum()
+        + torch.abs(x[:, :, 1:] - x[:, :, :-1]).sum()
+    ) / (n1 * n2 * n3)
+    loss["loss"] = loss.get("loss", 0.0) + tv * k
+    loss["loss_tv"] = tv * k
+    return loss
+
+
+def calc_tv_loss(loss, image, weight):
+    """2D total variation, L2, over the last two axes."""
+    tv_h = torch.mean((image[..., :-1, :] - image[..., 1:, :]) ** 2)
+    tv_w = torch.mean((image[..., :, :-1] - image[..., :, 1:]) ** 2)
+    l = weight * (tv_h + tv_w)
+    loss["loss"] = loss.get("loss", 0.0) + l
+    loss["loss_tv"] = l
+    return loss
+
+
+def total_variation_loss(densities):
+    """Mean |Delta sigma| along rays ([rays, samples])."""
+    return torch.mean(torch.abs(densities[:, 1:] - densities[:, :-1]))
+
+
+def compute_tv_regularization(loss, values, weight):
+    """Sum-L1 TV along ray samples ([rays, samples, C]), accumulated into
+    ``loss["loss"]``."""
+    diffs = values[:, 1:, :] - values[:, :-1, :]
+    tv = torch.sum(torch.abs(diffs))
+    loss["loss"] = loss.get("loss", 0.0) + tv * weight
+    return loss
+
+
+def calc_fourier_loss(loss, x, y, lambda_sparsity=0.01, lambda_smoothness=0.01):
+    """Fourier-magnitude reconstruction + sparsity + smoothness (the
+    reconstruction term counted once)."""
+    if x.ndim < 2 or y.ndim < 2:
+        raise ValueError("Inputs must have at least 2 dimensions.")
+    xa = torch.abs(torch.fft.fft2(x))
+    ya = torch.abs(torch.fft.fft2(y))
+    loss_sparsity = lambda_sparsity * torch.sum(xa)
+    if xa.shape[-2] > 1 and xa.shape[-1] > 1:
+        dx = xa[..., 1:, :] - xa[..., :-1, :]
+        dy = xa[..., :, 1:] - xa[..., :, :-1]
+        loss_smoothness = lambda_smoothness * (torch.abs(dx).mean()
+                                               + torch.abs(dy).mean())
+    else:
+        loss_smoothness = torch.zeros((), dtype=xa.dtype, device=xa.device)
+    loss_recon = torch.mean((xa - ya) ** 2)
+    total = loss_recon + loss_sparsity + loss_smoothness
+    loss["loss"] = loss.get("loss", 0.0) + total
+    loss["loss_fourier_reconstruction"] = loss_recon
+    loss["loss_sparsity"] = loss_sparsity
+    loss["loss_smoothness"] = loss_smoothness
+    return loss
+
+
+def calc_fourier_sparsity_loss(loss, y, weight):
+    """L1 sparsity of the centered Fourier coefficients."""
+    if y.ndim < 2:
+        raise ValueError("Input must have at least 2 dimensions.")
+    fft_y = torch.fft.fftshift(torch.fft.fft2(y, dim=(-2, -1)))
+    l = torch.mean(torch.abs(fft_y)) * weight
+    loss["loss"] = loss.get("loss", 0.0) + l
+    loss["loss_fourier_sparsity"] = l
+    return loss
+
+
+def calc_l1_loss(loss, x, y):
+    """L1 loss."""
+    l = torch.mean(torch.abs(x - y))
+    loss["loss"] = loss.get("loss", 0.0) + l
+    loss["loss_l1"] = l
+    return loss
+
 
 
 _PRIMARY_LOSSES = {
@@ -34,13 +221,6 @@ _PRIMARY_LOSSES = {
 }
 
 _REGULARIZERS = ("small", "zero", "tv", "tvd")
-
-
-def _gmean(x, mask=None):
-    if mask is None:
-        return torch.mean(x)
-    m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
 def get_loss_fn(name: str = "mse"):

@@ -122,7 +122,7 @@ class Trainer:
         if mesh and int(np.prod(list(dict(mesh).values()))) > 1:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet (ROADMAP.md, Queue 1 "
-                "item 3: parallel/)")
+                "item 6: parallel/)")
         self.n_fine = int(cfg["render"]["n_fine"])
         self.epochs = int(cfg["train"]["epoch"])
         self.i_eval = int(cfg["log"]["i_eval"])

@@ -549,3 +549,48 @@ def test_launch_path_raises_on_kernel_error(dev):
                       table.data_ptr(), offs.data_ptr(), fout.data_ptr(), 0, 0, L,
                       3, C, 4, 3000)
     torch.cuda.synchronize()
+
+
+# ---- the data side on the card: the projector and the generator ----
+
+@pytest.mark.parametrize("mode,tilt", [("cone", 0.0), ("parallel", 29.0)])
+def test_project_angles_on_card_matches_cpu(dev, mode, tilt):
+    """The projector on the card (its default) against the same function
+    on the CPU: the same f32 operations, the per-ray sums in another order
+    (atol 1e-5 of the largest value)."""
+    from neuralvolumetricreconstructionformedicalimages_torch import geometry as G
+    from neuralvolumetricreconstructionformedicalimages_torch.data.projector import (
+        project_angles)
+
+    geo = G.ConeGeometry(DSD=1.5, DSO=1.0, nDetector=(24, 17), dDetector=(0.01, 0.01),
+                         nVoxel=(16, 16, 16), dVoxel=(0.008, 0.008, 0.008),
+                         mode=mode, tilt_angle=tilt)
+    vol = np.random.default_rng(0).random(geo.nVoxel).astype(np.float32)
+    angles = np.array([0.1, 1.3, 4.0], np.float32)
+    card = project_angles(vol, geo, angles)
+    assert card.device.type == "cuda" and card.shape == (3, 17, 24)
+    cpu = project_angles(vol, geo, angles, device="cpu")
+    top = float(cpu.abs().max())
+    assert top > 0.01
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-5 * top)
+
+
+def test_generate_runs_on_card(dev):
+    """``generate`` with no device projects on the card; the dataset
+    matches the CPU's (angles and volume equal, projections within 1e-5
+    of the largest value)."""
+    import importlib
+
+    gen = importlib.import_module(
+        "neuralvolumetricreconstructionformedicalimages_torch.data.generate")
+    scan = {"nVoxel": [16, 16, 8], "dVoxel": [8.0, 8.0, 8.0], "nDetector": [16, 17],
+            "dDetector": [12.0, 12.0], "numTrain": 3, "numVal": 2, "mode": "parallel",
+            "tilt_angle": 29, "totalAngle": 360}
+    card = gen.generate(scan, phantom="lamino_chip", seed=0)
+    cpu = gen.generate(scan, phantom="lamino_chip", seed=0, device="cpu")
+    np.testing.assert_array_equal(card["image"], cpu["image"])
+    for split in ("train", "val"):
+        np.testing.assert_array_equal(card[split]["angles"], cpu[split]["angles"])
+        a, b = card[split]["projections"], cpu[split]["projections"]
+        assert isinstance(a, np.ndarray) and a.dtype == np.float32
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * float(np.abs(b).max()))
