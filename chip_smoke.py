@@ -79,7 +79,24 @@ e. the data side on the card, each path driven with the launch counts
        ``real_scan`` of the kernels line;
    each training path must launch the span gather's table mode, the
    bucket and the unroll in every step and the roll build and the rolled
-   mode never, with a finite, falling loss.
+   mode never, with a finite, falling loss;
+f. the parallel layer (``parallel/``) on the card, after e:
+   f1. ``configs/chest_phantom_r3.yaml`` with ``parallel: {mesh: {data: 1,
+       sample: 1}, force_mesh: true}``: the trainer makes a one-rank NCCL
+       group and trains one epoch (50 steps at full width) through the
+       sharded step; its 50 losses ``torch.equal`` to phase 4's;
+   f2. data=2: two ranks that share cuda:0 under gloo (NCCL refuses two
+       ranks on one device), chest_phantom_r3 at 1024 global rays (512 a
+       rank), 20 steps; then one fed batch of 1024 rays split in two
+       against the single-process step on the whole batch: the loss to
+       rtol 1e-6, every gradient tensor within 1e-4 of its largest entry;
+   f3. data=1 x sample=2 on the same two ranks, 96 samples each: with
+       ``perturb`` off one step's loss against the single-process step's
+       (rtol 1e-5; gradients as in f2), then 20 steps with ``perturb`` on;
+   each rank must launch the three main-path kernels in every step, hold
+   the same parameters as the other (a checksum) and read a finite,
+   falling loss.  Gloo stages every all-reduce through the host, so f2's
+   and f3's times are not those of NCCL across cards.
 
 The bucket is the tile design of ``csrc/bucket_matmul.cu`` (one block per
 1024-column tile with two searches per tile, slice blocks for runs of
@@ -112,6 +129,9 @@ _REPLACES = {"roll_broadcast_fm": _TPU + "ops/roll_kernels.py:152",
              "bucket_grad_matmul": _TPU + "ops/bucket_matmul.py:261",
              "unroll_reduce_fm": _TPU + "ops/roll_kernels.py:192",
              "scatter_level": "scripts/microbench_encoder.py:142"}
+# Phase (f): the two shared-card ranks' group times out after this; the
+# parent kills them after PARALLEL_JOIN_S.
+PARALLEL_GROUP_TIMEOUT_S, PARALLEL_JOIN_S = 120, 300
 # The main path's kernels: launched in every step (True) or never (False).
 MAIN_NEEDS = {"span_gather_sorted[table]": True, "bucket_grad_matmul": True,
               "unroll_reduce_fm": True, "span_gather_sorted": False,
@@ -607,6 +627,235 @@ def real_scan(dev, record, entry_of) -> dict:
 
 
 
+def param_checksum(module) -> list:
+    """Each parameter tensor's sum and sum of squares, in f64."""
+    return [float(x) for p in module.parameters()
+            for x in (p.detach().double().sum(), p.detach().double().square().sum())]
+
+
+def allreduce_ms(module, iters: int = 10) -> float:
+    """Median ms of one SUM all-reduce, over the default group, of a buffer
+    the size of ``module``'s flat gradient (host clock, the card
+    synchronised after each)."""
+    import torch
+    import torch.distributed as dist
+
+    n = sum(p.numel() for p in module.parameters())
+    buf = torch.zeros(n, device=next(module.parameters()).device)
+    times = []
+    for i in range(iters + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def train_steps(tr, where: str, steps: int) -> dict:
+    """``steps`` steps of ``Trainer.train_step`` with the launch counts set
+    to 0 just before and read just after; fails unless each main-path
+    kernel launched in every step and the loss is finite and falling."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
+        StepTimer)
+    views = tr._view_order(0)[:steps]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    timer = StepTimer(tr.device)
+    timer.tick()
+    step_losses = []
+    for v in views:
+        step_losses.append(tr.train_step(v))
+        timer.tick()
+    losses = torch.stack(step_losses).cpu().numpy()
+    ms = timer.step_ms()
+    launches = dict(_build.LAUNCHES)
+    check_launches(where, launches, steps)
+    first, last = falling(where, losses, 5)
+    return dict(steps=len(losses), losses=[float(x) for x in losses],
+                median_step_ms=float(np.median(ms)), loss_first5=first,
+                loss_last5=last, launches=launches)
+
+
+def fed_check(tr, where: str, perturb: bool) -> dict:
+    """One sharded step of ``tr``'s mesh fed one 1024-ray batch (and its
+    jitter), this rank's share of it, against the single-process step on
+    the whole batch, each from a copy of ``tr``'s field: the loss to rtol
+    1e-6 (1e-5 with the sample axis split) and every gradient tensor within
+    1e-4 of its largest entry."""
+    import copy
+
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
+        gather_view_batch)
+    from neuralvolumetricreconstructionformedicalimages_torch.parallel.step import (
+        make_sharded_train_step)
+    from neuralvolumetricreconstructionformedicalimages_torch.train.optim import (
+        make_optimizer)
+    from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
+        make_loss_fn)
+    cfg = copy.deepcopy(tr.cfg)
+    cfg["render"]["perturb"] = perturb
+    n_rays, n_samples = tr.n_rays, int(cfg["render"]["n_samples"])
+    g = torch.Generator(device=tr.device).manual_seed(7)
+    whole = gather_view_batch(tr._arrays, 0, n_rays, g)
+    t_rand = (torch.rand((n_rays, n_samples), generator=g, device=tr.device)
+              if perturb else None)
+    ref = copy.deepcopy(tr.field)
+    ref_loss = make_loss_fn(cfg, tr.use_mask)(ref, None, whole, t_rand=t_rand)
+    ref_loss.backward()
+    field = copy.deepcopy(tr.field)
+    step = make_sharded_train_step(
+        cfg, field, make_optimizer(cfg, field.parameters()), tr.mesh,
+        tr.steps_per_epoch, torch.Generator(device=tr.device).manual_seed(0),
+        n_rays=n_rays, n_batch=1, use_mask=tr.use_mask)
+    n_data = tr.mesh.size(0)
+    d = tr.mesh.get_local_rank("data")
+    share = slice(d * n_rays // n_data, (d + 1) * n_rays // n_data)
+    loss = float(step(tr._arrays, [0], 0,
+                      batch={k: whole[k][share] for k in ("rays", "projs", "mask")},
+                      t_rand=None if t_rand is None else t_rand[share]))
+    rel = max(float((p.grad - q.grad).abs().max() / q.grad.abs().max())
+              for p, q in zip(field.parameters(), ref.parameters()))
+    loss_rtol = 1e-6 if tr.mesh.size(1) == 1 else 1e-5
+    ref_loss = float(ref_loss.detach())
+    out = dict(loss=loss, single_process_loss=ref_loss,
+               loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+               loss_rtol=loss_rtol, grad_max_rel_err=rel, grad_tol=1e-4)
+    print(f"{where} fed batch: {out}")
+    if not out["loss_rel_err"] <= loss_rtol or not rel <= 1e-4:
+        raise AssertionError(f"{where}: the fed step differs from the single-process "
+                             f"step: {out}")
+    return out
+
+
+def parallel_rank(rank: int, world: int, store: str, out_dir: str, cfg_path: str) -> None:
+    """Phases f2 and f3 on one of the ranks that share cuda:0 under gloo;
+    writes ``rank<r>.json`` to ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from neuralvolumetricreconstructionformedicalimages_torch.config import load_config
+    from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
+        Trainer, pin_fp32)
+
+    torch.cuda.set_device(0)
+    pin_fp32()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PARALLEL_GROUP_TIMEOUT_S))
+    try:
+        out = {}
+        for phase, layout in (("f2", {"data": 2, "sample": 1}),
+                              ("f3", {"data": 1, "sample": 2})):
+            cfg = load_config(cfg_path)
+            cfg["parallel"] = {"mesh": layout}
+            cfg["log"].update(i_eval=0, i_save=0)
+            tr = Trainer(cfg, workdir=os.path.join("logs", f"chip_smoke_{phase}"),
+                         device="cuda:0")
+            res = {"mesh": layout, "backend": dist.get_backend()}
+            if phase == "f3":     # the loss with perturb off first
+                res["fed"] = fed_check(tr, f"{phase} rank {rank}", perturb=False)
+            res.update(train_steps(tr, f"{phase} rank {rank}", TRAIN_STEPS))
+            res["checksum"] = param_checksum(tr.field)
+            res["allreduce_ms"] = allreduce_ms(tr.field)
+            if phase == "f2":
+                res["fed"] = fed_check(tr, f"{phase} rank {rank}", perturb=True)
+            print(f"{phase} rank {rank}: median step {res['median_step_ms']:.3f} ms, "
+                  f"gradient all-reduce {res['allreduce_ms']:.3f} ms, loss first-5 "
+                  f"{res['loss_first5']:.6g} last-5 {res['loss_last5']:.6g}, "
+                  f"launches {res['launches']}", flush=True)
+            out[phase] = res
+            del tr
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(cfg_path: str, main_losses, smi: str) -> dict:
+    """Phase (f); returns the ``parallel`` JSON line's object."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from neuralvolumetricreconstructionformedicalimages_torch.config import load_config
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+    from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import Trainer
+
+    # f1. a mesh of one on a one-rank NCCL group the trainer makes itself
+    cfg = load_config(cfg_path)
+    cfg["parallel"] = {"mesh": {"data": 1, "sample": 1}, "force_mesh": True}
+    cfg["train"]["epoch"] = 0       # one epoch: 50 views -> 50 steps
+    cfg["log"].update(i_eval=0, i_save=0)   # the eval draws nothing
+    tr = Trainer(cfg, workdir=os.path.join("logs", "chip_smoke_f1"), device="cuda")
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        _, wall = timed(tr.start)
+        launches = dict(_build.LAUNCHES)
+        backend = dist.get_backend()
+        ar_ms = allreduce_ms(tr.field)
+    finally:
+        tr.close()
+    check_launches("f1", launches, 50)
+    if not torch.equal(torch.tensor(tr.losses), torch.tensor(main_losses)):
+        raise AssertionError(f"f1: the force_mesh losses differ from phase 4's: "
+                             f"{tr.losses} vs {main_losses}")
+    f1 = dict(config=cfg_path, mesh=cfg["parallel"], backend=backend,
+              steps=len(tr.losses), wall_s=wall,
+              median_step_ms=float(np.median(tr.step_ms)), allreduce_ms=ar_ms,
+              losses=list(tr.losses), losses_equal_phase4=True, launches=launches)
+    print(f"f1 force_mesh ({backend}, one rank): {len(tr.losses)} steps in {wall:.1f} s, "
+          f"median step {f1['median_step_ms']:.3f} ms, gradient all-reduce "
+          f"{ar_ms:.3f} ms, losses torch.equal to phase 4's, launches {launches}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # f2, f3. two ranks sharing cuda:0 under gloo
+    out_dir = os.path.join("logs", "chip_smoke_f")
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, "store")
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(parallel_rank, args=(2, store, out_dir, cfg_path),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > PARALLEL_JOIN_S:
+                raise AssertionError(f"f2/f3: the ranks did not end in "
+                                     f"{PARALLEL_JOIN_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    res = {"f1": f1, "card": smi, "f23_wall_s": time.perf_counter() - t0}
+    for phase in ("f2", "f3"):
+        if ranks[0][phase]["checksum"] != ranks[1][phase]["checksum"]:
+            raise AssertionError(f"{phase}: the ranks' parameters differ")
+        res[phase] = {"backend": ranks[0][phase]["backend"],
+                      "why_gloo": "two ranks share one card; NCCL refuses that",
+                      "mesh": ranks[0][phase]["mesh"],
+                      "ranks": [rk[phase] for rk in ranks]}
+    print(f"f2/f3: two ranks on cuda:0 in {res['f23_wall_s']:.1f} s; parameters "
+          f"equal across the ranks after each phase")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -879,6 +1128,7 @@ def main() -> int:
     for kname in MAIN_NEEDS:
         entry_of(kname)["launches"] = int(launches.get(kname, 0))
     first, last = falling("main path", trainer.losses, 10)
+    main_losses = list(trainer.losses)
     step_ms = float(np.median(trainer.step_ms))
     ev = trainer.eval_metrics[0]
     print(f"loss: first-10 mean {first:.6g}, last-10 mean {last:.6g}")
@@ -891,6 +1141,10 @@ def main() -> int:
 
     # ---- e. the data side on the card ----
     data_line = data_side(dev, record, entry_of)
+    torch.cuda.empty_cache()
+
+    # ---- f. the parallel layer on the card ----
+    parallel_line = parallel_phase(cfg_path, main_losses, smi)
     torch.cuda.empty_cache()
 
     # ---- c. the encoder microbenchmark (the path of scatter_level) ----
@@ -953,6 +1207,7 @@ def main() -> int:
             entry["kernel_ms"] = entry["ms"]
         line.append(r)
     print(json.dumps({"data": data_line, "card": smi}))
+    print(json.dumps({"parallel": parallel_line}))
     print(json.dumps({"kernels": line, "train": {
         "config": cfg_path, "steps": steps, "median_step_ms": step_ms,
         "rays_per_s": n_rays / (step_ms / 1e3), "loss_first10": first,

@@ -3,7 +3,7 @@
 Port of the JAX ``config.py``: a config file may name a parent via
 ``inherit_from``; parents load first and children deep-merge on top.
 Sections ``exp``, ``network``, ``encoder``, ``render``, ``train``, ``log``
-and ``parallel`` (precision policy).
+and ``parallel`` (mesh shape, precision policy).
 """
 
 from __future__ import annotations
@@ -15,7 +15,10 @@ from typing import Any, Dict, Optional
 # Defaults for the knobs the reference-shaped configs leave out.
 _DEFAULTS: Dict[str, Dict[str, Any]] = {
     "parallel": {
-        "mesh": None,                # multi-device layouts are not ported yet
+        # e.g. {"data": 4, "sample": 2}: one rank a device (parallel/);
+        # None = one process, the unsharded step.  ``force_mesh: true``
+        # runs a mesh of one through the sharded step as well.
+        "mesh": None,
         "compute_dtype": "float32",  # MLP matmul input dtype
         "table_dtype": "float32",    # rolled gather-table dtype
     },

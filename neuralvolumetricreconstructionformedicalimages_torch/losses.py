@@ -8,7 +8,8 @@ Port of the JAX ``losses.py``:
   the masked rays;
 - ``get_loss_fn``: ``train.loss`` names a primary per-ray term, optionally
   composed with additive regularizers via ``+``, e.g. ``"mse"``,
-  ``"huber"``, ``"mse+small"``, ``"l1+tvd:0.05"``.
+  ``"huber"``, ``"mse+small"``, ``"l1+tvd:0.05"``; with a process
+  ``group`` its means are exact global means over the group's ranks.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 
 def _phase01(x):
@@ -28,6 +30,30 @@ def _gmean(x, mask=None):
         return torch.mean(x)
     m = mask.to(x.dtype)
     return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def global_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``, through which autograd
+    sees only this rank's own term: ``x + (all_reduce(x) - x).detach()``.
+    Summing the ranks' gradients then gives the gradient of the global
+    value once."""
+    total = x.detach().clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return x + (total - x.detach())
+
+
+def _global_mean(x, mask, group):
+    """``_gmean`` over the concatenated batch of ``group``'s ranks."""
+    if mask is None:
+        num = torch.sum(x)
+        den = x.new_full((), float(x.numel()))   # filled on the device: no sync
+    else:
+        m = mask.to(x.dtype)
+        num, den = torch.sum(x * m), torch.sum(m).detach()
+    dist.all_reduce(den, op=dist.ReduceOp.SUM, group=group)
+    if mask is not None:
+        den = torch.clamp(den, min=1.0)
+    return global_sum(num, group) / den
 
 
 def fourier_transform(x):
@@ -223,13 +249,23 @@ _PRIMARY_LOSSES = {
 _REGULARIZERS = ("small", "zero", "tv", "tvd")
 
 
-def get_loss_fn(name: str = "mse"):
+def get_loss_fn(name: str = "mse", group=None):
     """Build the training loss named by ``cfg["train"]["loss"]``.
 
     Returns ``fn(pred, target, mask=None, aux=None) -> (loss, components)``
     where ``components`` maps loss-dict keys to scalars.  ``aux`` carries
     the renderer's ``tv_loss`` / ``tv_density``; "tvd" defaults to weight
     0.1, the others to 1, and "name:w" sets a weight.
+
+    ``group`` (a ``torch.distributed`` process group; the sharded step's
+    ``data`` group): every mean becomes the exact mean over the
+    concatenated batch of the group's ranks -- numerator and denominator
+    are each all-reduced before the division, so the value holds also
+    when the mask sums differ per rank.  Each rank's autograd sees only
+    its own share of the numerators (:func:`global_sum`; denominators
+    take no gradient), so the ranks' gradients sum to the gradient of the
+    global loss.  ``aux`` terms must already be global (the caller's
+    job).  ``group=None`` is the single-process loss.
     """
     parts = [p.strip().lower() for p in str(name or "mse").split("+") if p.strip()]
     if not parts:
@@ -257,10 +293,11 @@ def get_loss_fn(name: str = "mse"):
             w = 0.1 if r == "tvd" else 1.0
         regs.append((r, w))
     per_elem, comp_key = _PRIMARY_LOSSES[primary]
+    mean = _gmean if group is None else (lambda x, mask=None: _global_mean(x, mask, group))
 
     def fn(pred, target, mask=None, aux=None):
         aux = aux or {}
-        total = _gmean(per_elem(pred, target), mask)
+        total = mean(per_elem(pred, target), mask)
         components = {comp_key: total}
         for r, w in regs:
             if r == "tv":
@@ -268,9 +305,9 @@ def get_loss_fn(name: str = "mse"):
             elif r == "tvd":
                 term = aux.get("tv_density", 0.0)
             elif r == "small":
-                term = _gmean(pred ** 2)
+                term = mean(pred ** 2)
             else:  # "zero"
-                term = _gmean((torch.abs(target) <= 1e-5).to(pred.dtype) * pred ** 2)
+                term = mean((torch.abs(target) <= 1e-5).to(pred.dtype) * pred ** 2)
             term = term * w
             components[f"loss_{r}"] = term
             total = total + term

@@ -8,7 +8,8 @@ hierarchical fine pass and the TV terms.  ``render_image`` and
 
 Randomness comes from an explicit ``torch.Generator``; with none (and no
 fed draw) the coarse pass is not perturbed, as the JAX renderer without a
-key.  ``t_rand`` / ``u`` / ``noise`` feed draws in (tests feed JAX's).
+key.  ``t_rand`` / ``u`` / ``noise`` (the coarse pass's) feed draws in
+(tests feed JAX's).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ def render_rays(
     enc_params_fine=None,
     t_rand: Optional[torch.Tensor] = None,
     u: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render a batch of rays [n_rays, 8] -> dict with 'acc' [n_rays] etc.
 
@@ -61,7 +63,7 @@ def render_rays(
     bound = field.bound - 1e-6
     pts = _points(rays_o, rays_d, z_vals, bound)
     raw = field(pts, enc_params)
-    acc, weights = raw2outputs(raw, z_vals, rays_d, raw_noise_std, generator)
+    acc, weights = raw2outputs(raw, z_vals, rays_d, raw_noise_std, generator, noise)
 
     ret: Dict[str, torch.Tensor] = {}
     if n_fine > 0 and field_fine is not None:

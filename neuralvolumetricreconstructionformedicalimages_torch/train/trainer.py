@@ -10,7 +10,11 @@ Port of the JAX ``train/trainer.py``:
 - checkpoints with ``torch.save`` (newest two kept) and resume;
 - eval at epoch 0, every ``i_eval`` epochs and at the end: one val view
   rendered in full, the voxel grid queried, projection MSE/PSNR and 3D
-  PSNR/SSIM, slice mosaics and npy/png/stats.txt artifacts.
+  PSNR/SSIM, slice mosaics and npy/png/stats.txt artifacts;
+- with ``parallel.mesh`` larger than one device (or ``parallel.force_mesh``)
+  the sharded step of ``parallel/step.py`` over the ranks of the process
+  group: rank 0 alone evaluates, logs and saves, and every rank restores
+  the same checkpoint.
 
 The trainer runs on the card unless it is given ``device="cpu"``; without
 a card it raises.
@@ -18,20 +22,24 @@ a card it raises.
 
 from __future__ import annotations
 
+import datetime
 import glob
 import json
 import os
 import os.path as osp
 import re
+import struct
 import time
+import zlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import with_defaults
 from ..data.dataset import gather_view_batch, load_dataset
-from ..losses import get_loss_fn
+from ..losses import get_loss_fn, global_sum
 from ..metrics import cast_to_image, get_mse, get_psnr, get_psnr_3d, get_ssim_3d
 from ..models import DensityField, get_encoder, get_network
 from ..render import query_field, render_image, render_rays
@@ -77,23 +85,34 @@ def build_model(cfg: Dict[str, Any], generator: Optional[torch.Generator] = None
                                  device=device, **net_cfg)
 
 
-def make_loss_fn(cfg: Dict[str, Any], use_mask: bool):
-    """``loss_fn(field, field_fine, batch, generator=None, t_rand=None)``:
-    render the batch's rays and reduce them to the training loss."""
+def make_loss_fn(cfg: Dict[str, Any], use_mask: bool, group=None):
+    """``loss_fn(field, field_fine, batch, generator=None, t_rand=None,
+    noise=None)``: render the batch's rays and reduce them to the training
+    loss.  With a process ``group`` (the sharded step's data group) the
+    loss is that of the group's concatenated batch, and the TV terms are
+    the sum (``tv_loss``) and the mean (``tv_density``) over its ranks."""
     render_cfg = cfg["render"]
     n_samples = int(render_cfg["n_samples"])
     n_fine = int(render_cfg["n_fine"])
     perturb = bool(render_cfg["perturb"])
     raw_noise_std = float(render_cfg["raw_noise_std"])
-    loss_calc = get_loss_fn(cfg["train"].get("loss", "mse"))
+    loss_name = str(cfg["train"].get("loss", "mse"))
+    loss_calc = get_loss_fn(loss_name, group=group)
+    # the TV terms are reduced over the group only when the loss reads them
+    uses_tv = any(r.split(":")[0].strip().lower() in ("tv", "tvd")
+                  for r in loss_name.split("+")[1:])
 
-    def loss_fn(field, field_fine, batch, generator=None, t_rand=None):
+    def loss_fn(field, field_fine, batch, generator=None, t_rand=None, noise=None):
         out = render_rays(
             batch["rays"], field, n_samples=n_samples, n_fine=n_fine,
             perturb=perturb, raw_noise_std=raw_noise_std, generator=generator,
-            field_fine=field_fine, t_rand=t_rand)
+            field_fine=field_fine, t_rand=t_rand, noise=noise)
         mask = batch["mask"] if use_mask else None
         aux = {"tv_loss": out["tv_loss"], "tv_density": out["tv_density"]}
+        if group is not None and uses_tv:
+            aux = {"tv_loss": global_sum(aux["tv_loss"], group),
+                   "tv_density": global_sum(aux["tv_density"], group)
+                   / dist.get_world_size(group)}
         loss, _ = loss_calc(out["acc"], batch["projs"], mask, aux)
         if n_fine > 0 and field_fine is not None:
             # regularizers count once, on the fine loss
@@ -114,15 +133,26 @@ class Trainer:
 
     def __init__(self, cfg: Dict[str, Any], workdir: Optional[str] = None,
                  device=None):
-        self.device = resolve_device(device)
-        pin_fp32()
+        from ..parallel.mesh import MeshSpec
+
         cfg = with_defaults(cfg)
         self.cfg = cfg
-        mesh = cfg.get("parallel", {}).get("mesh")
-        if mesh and int(np.prod(list(dict(mesh).values()))) > 1:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP.md, Queue 1 "
-                "item 6: parallel/)")
+        # ``parallel.mesh`` larger than one device, or a mesh of one under
+        # ``force_mesh``, selects the sharded step (parallel/step.py) over
+        # the ranks of the process group, one device a rank.
+        par = cfg["parallel"]
+        mspec = MeshSpec.from_config(par.get("mesh"))
+        sharded = mspec.n_devices > 1 or bool(par.get("force_mesh"))
+        self.device = resolve_device(device)
+        if sharded and self.device.type == "cuda":
+            # a rank's card: cuda:(LOCAL_RANK % count) by default, else the
+            # one named, or the current one for a bare "cuda"
+            if self.device.index is None:
+                index = (int(os.environ.get("LOCAL_RANK", 0)) if device is None
+                         else torch.cuda.current_device())
+                self.device = torch.device("cuda", index % torch.cuda.device_count())
+            torch.cuda.set_device(self.device)
+        pin_fp32()
         self.n_fine = int(cfg["render"]["n_fine"])
         self.epochs = int(cfg["train"]["epoch"])
         self.i_eval = int(cfg["log"]["i_eval"])
@@ -133,7 +163,16 @@ class Trainer:
         self.expdir = workdir or osp.join(cfg["exp"]["expdir"], cfg["exp"]["expname"])
         self.ckptdir = osp.join(self.expdir, "ckpt")
         self.evaldir = osp.join(self.expdir, "eval")
-        os.makedirs(self.evaldir, exist_ok=True)
+
+        self.mesh = None
+        self._group_store = None   # the store file of a group this trainer made
+        if sharded:
+            from ..parallel.mesh import make_mesh
+            self._join_group(mspec)
+            self.mesh = make_mesh(mspec, self.device.type)
+        self.rank = dist.get_rank() if self.mesh is not None else 0
+        if self.rank == 0:
+            os.makedirs(self.evaldir, exist_ok=True)
 
         datadir = cfg["exp"]["datadir"]
         ray_mode = str(cfg["train"].get("ray_mode", "auto"))
@@ -141,7 +180,7 @@ class Trainer:
                                        device=self.device, ray_mode=ray_mode)
         self.eval_dset = (load_dataset(datadir, "val", self.n_rays,
                                        device=self.device, ray_mode=ray_mode)
-                          if self.i_eval > 0 else None)
+                          if self.i_eval > 0 and self.rank == 0 else None)
         self.use_mask = bool(float(self.train_dset.mask.min()) < 1.0)
         self.steps_per_epoch = max(1, self.train_dset.n_views // self.n_batch)
 
@@ -151,13 +190,22 @@ class Trainer:
         self.field = build_model(cfg, self.generator, self.device)
         self.field_fine = (build_model(cfg, self.generator, self.device)
                            if self.n_fine > 0 else None)
-        params = list(self.field.parameters())
-        if self.field_fine is not None:
-            params += list(self.field_fine.parameters())
-        self.optimizer = make_optimizer(cfg, params)
+        self.optimizer = make_optimizer(cfg, self._parameters())
         self.schedule = make_lr_schedule(cfg, self.steps_per_epoch)
         self._loss_fn = make_loss_fn(cfg, self.use_mask)
         self._arrays = self.train_dset.arrays()
+        self._sharded_step = None
+        if self.mesh is not None:
+            from ..parallel.step import make_sharded_train_step
+
+            ds = self.train_dset
+            self._sharded_step = make_sharded_train_step(
+                cfg, self.field, self.optimizer, self.mesh, self.steps_per_epoch,
+                self.generator, n_rays=self.n_rays, n_batch=self.n_batch,
+                use_mask=self.use_mask, field_fine=self.field_fine, geo=ds.geo,
+                near=ds.near, far=ds.far)
+            # this rank's draws: the generator folded with its data index
+            self.generator = self._sharded_step.generator
 
         self.epoch_start = 0
         self.global_step = 0
@@ -168,9 +216,76 @@ class Trainer:
 
         if cfg["train"]["resume"] and self._checkpoints():
             self.restore()
+        if self.mesh is not None:
+            self._check_replicas()
 
-        self.logger = ExperimentLogger(self.expdir)
-        self.logger.add_text("parameters", json.dumps(_jsonable(cfg), indent=2))
+        self.logger = None
+        if self.rank == 0:
+            self.logger = ExperimentLogger(self.expdir)
+            self.logger.add_text("parameters", json.dumps(_jsonable(cfg), indent=2))
+
+    # -- process group -----------------------------------------------------
+    def _join_group(self, mspec) -> None:
+        """Use the initialized process group; for a mesh of one with none,
+        make a one-rank group (NCCL on the card, gloo on the CPU) on a
+        ``FileStore`` in the work directory.  A larger mesh needs its
+        processes launched together."""
+        if dist.is_initialized():
+            return
+        if mspec.n_devices > 1:
+            raise RuntimeError(
+                f"parallel.mesh {mspec} needs {mspec.n_devices} processes, one a "
+                f"device, and no process group is initialized: launch with "
+                f"torchrun --nproc-per-node {mspec.n_devices} -m "
+                f"neuralvolumetricreconstructionformedicalimages_torch.train.cli "
+                f"--config ...")
+        from ..parallel.mesh import DEFAULT_TIMEOUT_S
+
+        os.makedirs(self.expdir, exist_ok=True)
+        path = osp.join(self.expdir, "process_group.store")
+        if osp.exists(path):
+            os.remove(path)          # a store left by a run that did not close
+        cuda = self.device.type == "cuda"
+        dist.init_process_group(
+            "nccl" if cuda else "gloo", store=dist.FileStore(path, 1), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S),
+            device_id=self.device if cuda else None)
+        self._group_store = path
+
+    def close(self) -> None:
+        """Destroy the process group this trainer made (if it made one)."""
+        if self._group_store is not None:
+            dist.destroy_process_group()
+            if osp.exists(self._group_store):
+                os.remove(self._group_store)
+            self._group_store = None
+
+    def _parameters(self) -> List[torch.nn.Parameter]:
+        return [p for f in (self.field, self.field_fine) if f is not None
+                for p in f.parameters()]
+
+    def _check_replicas(self) -> None:
+        """Fail unless every rank holds the same parameters: each tensor's
+        sum and sum of squares (f64), their minimum over the ranks equal to
+        their maximum."""
+        sums = torch.stack([torch.stack([p.detach().double().sum(),
+                                         p.detach().double().square().sum()])
+                            for p in self._parameters()]).reshape(-1)
+        lo, hi = sums.clone(), sums.clone()
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        if not torch.equal(lo, hi):
+            raise RuntimeError(
+                f"rank {self.rank}: the ranks' parameters differ (per-tensor sums "
+                f"span {lo.tolist()} .. {hi.tolist()})")
+
+    def _all_ranks(self, flag: bool) -> bool:
+        """``flag`` of any rank, on every rank (a decision all ranks take)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
 
     # -- persistence -----------------------------------------------------
     def _checkpoints(self) -> List[str]:
@@ -179,22 +294,30 @@ class Trainer:
         return sorted(paths, key=lambda p: int(re.findall(r"(\d+)\.pt$", p)[0]))
 
     def save(self, epoch: int) -> None:
-        os.makedirs(self.ckptdir, exist_ok=True)
-        state = {
-            "epoch": epoch,
-            "field": self.field.state_dict(),
-            "field_fine": (self.field_fine.state_dict()
-                           if self.field_fine is not None else None),
-            "optimizer": self.optimizer.state_dict(),
-            "generator": self.generator.get_state(),
-        }
-        path = osp.join(self.ckptdir, f"ckpt_{epoch:06d}.pt")
-        torch.save(state, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for old in self._checkpoints()[:-2]:   # keep the newest two
-            os.remove(old)
+        """Checkpoint ``epoch``.  On a mesh every rank calls it: rank 0
+        writes and the ranks meet at a barrier after the write."""
+        if self.rank == 0:
+            os.makedirs(self.ckptdir, exist_ok=True)
+            state = {
+                "epoch": epoch,
+                "field": self.field.state_dict(),
+                "field_fine": (self.field_fine.state_dict()
+                               if self.field_fine is not None else None),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(),
+            }
+            path = osp.join(self.ckptdir, f"ckpt_{epoch:06d}.pt")
+            torch.save(state, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            for old in self._checkpoints()[:-2]:   # keep the newest two
+                os.remove(old)
+        if self.mesh is not None:
+            dist.barrier()
 
     def restore(self) -> None:
+        """Load the newest checkpoint; on a mesh every rank loads the same
+        one and draws from its saved generator folded with the rank's data
+        index (as at the start)."""
         path = self._checkpoints()[-1]
         state = torch.load(path, map_location=self.device)
         self.field.load_state_dict(state["field"])
@@ -202,9 +325,13 @@ class Trainer:
             self.field_fine.load_state_dict(state["field_fine"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.generator.set_state(state["generator"].cpu())
+        if self.mesh is not None:
+            from ..parallel.step import draw_generator
+            self.generator.set_state(draw_generator(self.generator, self.mesh).get_state())
         self.epoch_start = int(state["epoch"]) + 1
         self.global_step = self.epoch_start * self.steps_per_epoch
-        print(f"[RESUME] from epoch {state['epoch']} ({path})")
+        if self.rank == 0:
+            print(f"[RESUME] from epoch {state['epoch']} ({path})")
 
     # -- schedules -------------------------------------------------------
     def _view_order(self, epoch: int) -> np.ndarray:
@@ -223,7 +350,12 @@ class Trainer:
     # -- loop ------------------------------------------------------------
     def train_step(self, views) -> torch.Tensor:
         """One optimizer step on ``n_rays`` pixels of each view in
-        ``views``; returns the (device) loss without waiting for it."""
+        ``views`` (on a mesh, of the global batch); returns the (device)
+        loss without waiting for it."""
+        if self._sharded_step is not None:
+            loss = self._sharded_step(self._arrays, views, self.global_step)
+            self.global_step += 1
+            return loss
         ds = self.train_dset
         parts = [gather_view_batch(self._arrays, int(v), self.n_rays,
                                    self.generator, geo=ds.geo, near=ds.near,
@@ -241,15 +373,17 @@ class Trainer:
     def start(self, deadline: Optional[float] = None) -> None:
         """Main loop.  ``deadline``: optional absolute ``time.time()``;
         training stops cleanly between epochs once it has passed."""
+        main = self.rank == 0
         t_start = time.time()
         for idx_epoch in range(self.epoch_start, self.epochs + 1):
-            if deadline is not None and time.time() > deadline:
-                print(f"[deadline] stopping before epoch {idx_epoch} "
-                      f"({time.time() - t_start:.0f}s elapsed)")
+            if self._all_ranks(deadline is not None and time.time() > deadline):
+                if main:
+                    print(f"[deadline] stopping before epoch {idx_epoch} "
+                          f"({time.time() - t_start:.0f}s elapsed)")
                 break
             self.last_epoch = idx_epoch
-            if self.i_eval > 0 and (idx_epoch % self.i_eval == 0
-                                    or idx_epoch == self.epochs):
+            if main and self.i_eval > 0 and (idx_epoch % self.i_eval == 0
+                                             or idx_epoch == self.epochs):
                 metrics = self.eval_step(self.global_step, idx_epoch)
                 self.eval_metrics[idx_epoch] = metrics
                 msg = ", ".join(f"{k}: {v:.4g}" for k, v in metrics.items())
@@ -265,13 +399,15 @@ class Trainer:
             ms = timer.step_ms()
             self.losses.extend(float(x) for x in losses)
             self.step_ms.extend(ms)
-            if not np.isfinite(losses).all():
+            if main and not np.isfinite(losses).all():
                 print(f"! [Numerical Error] epoch {idx_epoch}: loss contains "
                       f"nan/inf ({losses})")
 
-            self.logger.add_scalar("train/loss", float(losses.mean()), self.global_step)
-            self.logger.add_scalar("train/lr", self.current_lr(), self.global_step)
-            if idx_epoch % 25 == 0 or idx_epoch == self.epochs:
+            if main:
+                self.logger.add_scalar("train/loss", float(losses.mean()),
+                                       self.global_step)
+                self.logger.add_scalar("train/lr", self.current_lr(), self.global_step)
+            if main and (idx_epoch % 25 == 0 or idx_epoch == self.epochs):
                 rate = self.n_rays * self.n_batch / (np.median(ms) / 1e3)
                 print(f"epoch={idx_epoch}/{self.epochs} loss={losses.mean():.4g} "
                       f"lr={self.current_lr():.3g} rays/s={rate:,.0f} "
@@ -279,10 +415,13 @@ class Trainer:
 
             if (self.i_save > 0 and idx_epoch > 0
                     and (idx_epoch % self.i_save == 0 or idx_epoch == self.epochs)):
-                print(f"[SAVE] epoch: {idx_epoch}/{self.epochs}, path: {self.ckptdir}")
+                if main:
+                    print(f"[SAVE] epoch: {idx_epoch}/{self.epochs}, "
+                          f"path: {self.ckptdir}")
                 self.save(idx_epoch)
-        self.logger.flush()
-        print(f"Training complete! See logs in {self.expdir}")
+        if main:
+            self.logger.flush()
+            print(f"Training complete! See logs in {self.expdir}")
 
     # -- eval ------------------------------------------------------------
     def eval_step(self, global_step: int, idx_epoch: int) -> Dict[str, float]:
@@ -357,12 +496,23 @@ class Trainer:
 
 
 def _save_png(path: str, img01: np.ndarray) -> None:
-    """Write a PNG when ``imageio`` is installed (skipped otherwise)."""
-    try:
-        import imageio.v2 as iio
-    except ImportError:
-        return
-    iio.imwrite(path, (np.clip(img01[..., 0], 0, 1) * 255).astype(np.uint8))
+    """Write channel 0 of ``img01`` ([H, W, C] in [0, 1]) as an 8-bit
+    grayscale PNG of ``clip * 255`` (the bytes the JAX package hands to
+    ``imageio``), with the standard library alone."""
+    img = np.ascontiguousarray((np.clip(img01[..., 0], 0, 1) * 255).astype(np.uint8))
+    h, w = img.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    # each row behind filter byte 0 (none)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1).tobytes()
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw))
+                + chunk(b"IEND", b""))
 
 
 def _jsonable(obj):

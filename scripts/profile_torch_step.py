@@ -25,10 +25,12 @@ table), runs warm-up steps, then profiles ``--steps`` steps with
 Run from the repository root on a machine with a CUDA card:
 
     python3 scripts/profile_torch_step.py [--config ...] [--steps 20] [--out DIR]
-        [--encoder hash_variant=xor ...]
+        [--encoder hash_variant=xor ...] [--force-mesh]
 
 ``--encoder KEY=VALUE`` (repeatable) overrides a key of the config's
-``encoder`` section, to profile another encoder path.
+``encoder`` section, to profile another encoder path.  ``--force-mesh``
+profiles the sharded step of ``parallel/step.py`` on a mesh of one (a
+one-rank NCCL group the trainer makes).
 
 ``--out`` also writes the chrome trace there.  Imports nothing of JAX.
 """
@@ -58,6 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--encoder", action="append", default=[], metavar="KEY=VALUE",
                     help="override an encoder config key (repeatable)")
+    ap.add_argument("--force-mesh", action="store_true",
+                    help="the sharded step on a one-rank mesh")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device available", file=sys.stderr)
@@ -72,7 +76,16 @@ def main(argv=None) -> int:
     for item in args.encoder:
         key, _, value = item.partition("=")
         cfg["encoder"][key] = yaml.safe_load(value)
+    if args.force_mesh:
+        cfg["parallel"] = {"mesh": {"data": 1, "sample": 1}, "force_mesh": True}
     tr = Trainer(cfg, workdir=os.path.join("logs", "profile_torch_step"), device="cuda")
+    try:
+        return profile(tr, args)
+    finally:
+        tr.close()
+
+
+def profile(tr, args) -> int:
     views = tr._view_order(0).reshape(-1, tr.n_batch)
     for i in range(args.warmup):
         tr.train_step(views[i % len(views)])
@@ -118,7 +131,8 @@ def main(argv=None) -> int:
     dev_ms = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"config: {args.config} {' '.join(args.encoder)}, {args.steps} profiled "
+    print(f"config: {args.config} {' '.join(args.encoder)}"
+          f"{' force_mesh' if args.force_mesh else ''}, {args.steps} profiled "
           f"steps after {args.warmup} warm-up")
     print(f"wall per step: {wall_ms:.3f} ms unprofiled, {prof_wall_ms:.3f} ms profiled; "
           f"device kernel time per step: {dev_ms:.3f} ms; "
@@ -134,7 +148,8 @@ def main(argv=None) -> int:
     for name, ms, n in rows[: args.top]:
         mark = " *" if any(k in name for k in ENCODER_KERNELS) else ""
         print(f"{ms:14.4f} {n:10.1f}  {name[:110]}{mark}")
-    summary = {"config": args.config, "encoder": args.encoder, "steps": args.steps,
+    summary = {"config": args.config, "encoder": args.encoder,
+               "force_mesh": args.force_mesh, "steps": args.steps,
                "wall_ms_per_step": wall_ms,
                "profiled_wall_ms_per_step": prof_wall_ms,
                "device_ms_per_step": dev_ms, "device_idle_share": 1 - dev_ms / wall_ms,
