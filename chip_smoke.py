@@ -27,11 +27,21 @@ Run from the root of a checkout, with no arguments:
    bracket the host's launch path too;
 4. trains ``configs/chest_phantom_r3.yaml`` for one epoch (50 steps of 1024
    rays x 192 samples) through the port's ``Trainer``, with its epoch-0
-   eval, after setting every launch count to 0; fails unless the span
-   gather (table mode), the bucket and the unroll launched at least 50
-   times, the roll build and the span gather's rolled mode not at all
-   (the main path reads the canonical table; each mode has its own launch
-   count), and the loss is finite and falling;
+   eval, after setting every launch count to 0.  ``Trainer.start`` runs
+   the epoch function: one eager step, one capture of the step as a CUDA
+   graph, 49 replays.  Fails unless the span gather (table mode), the
+   bucket and the unroll launched exactly 50 times, by the replay-aware
+   launch counts and by a ``torch.profiler`` trace of the epoch (the
+   kernels that ran), the roll build and the span gather's rolled mode
+   not at all (the main path reads the canonical table; each mode has its
+   own launch count), and the loss is finite and falling.  Then a second
+   trainer from the same seed takes the same 50 steps through the eager
+   ``Trainer.train_step`` loop: its losses must be ``torch.equal`` to the
+   graphed epoch's.  5 more replayed steps run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (0 host syncs a replayed
+   step, or the phase fails), and one more epoch of each, timed by events
+   and one traced, gives the graphed and the eager median step, device ms
+   a step, idle share and peak memory;
 5. prints the data side's results and the kernels, one JSON line each,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -48,10 +58,12 @@ b. ``scatter_level`` at N = 1,572,864, S = 2^19, C = 2: rtol/atol 1e-5 on
    beside its event time, its device time and ``index_add_``'s;
 c. the encoder microbenchmark (``scripts/microbench_encoder_torch.py``),
    every row, launch counts read around it;
-d. 20 full-width training steps each of the XOR, rolled and take encoder
-   paths through ``Trainer.train_step``, with the launches each requires
-   (the roll build at least 20 times on the rolled path) and a finite,
-   falling loss;
+d. 20 full-width training steps each of the XOR, rolled (with input
+   gradients) and take encoder paths through ``Trainer.train_steps`` (the
+   graphed epoch function), with the launches each requires (each
+   kernel of the path exactly once a step, the others never), by the
+   replay-aware counts and by a profiler trace of the steps, and a
+   finite, falling loss;
 e. the data side on the card, each path driven with the launch counts
    set to 0 just before it and read just after:
    e1. the projector (``data/projector.py::project_angles``) reprojects
@@ -72,14 +84,16 @@ e. the data side on the card, each path driven with the launch counts
        ``data/format_real.py``, beam masks and pools from the C++ host
        engine (``native/``, timed inside the dataset build),
        ``configs/chest_50.yaml`` at 4096 rays with rays on the fly, 20
-       masked steps and one masked eval; then the span gather's table
+       masked steps through the graphed epoch function and one masked
+       eval; then the span gather's table
        mode, the bucket and the unroll held against their plain versions
        as in 2-4 and timed on one 4096-ray batch of that path (786,432
        sorted points a level), under the modes ``table_real_scan`` and
        ``real_scan`` of the kernels line;
    each training path must launch the span gather's table mode, the
-   bucket and the unroll in every step and the roll build and the rolled
-   mode never, with a finite, falling loss;
+   bucket and the unroll exactly once a step and the roll build and the
+   rolled mode never, by the replay-aware counts and by a profiler trace
+   of its steps, with a finite, falling loss;
 f. the parallel layer (``parallel/``) on the card, after e:
    f1. ``configs/chest_phantom_r3.yaml`` with ``parallel: {mesh: {data: 1,
        sample: 1}, force_mesh: true}``: the trainer makes a one-rank NCCL
@@ -175,6 +189,62 @@ def check_launches(where: str, launches, steps: int, needs=MAIN_NEEDS) -> None:
         if (n < steps) if every_step else n:
             raise AssertionError(f"{where}: {kname} launched {n} times in "
                                  f"{steps} steps")
+
+
+def check_exact(where: str, launches, steps: int, needs=MAIN_NEEDS) -> None:
+    """Fail unless each kernel that ``needs`` marks True launched exactly
+    once a step in ``steps`` steps, and each marked False never."""
+    for kname, every_step in needs.items():
+        n = int(launches.get(kname, 0))
+        if n != (steps if every_step else 0):
+            raise AssertionError(f"{where}: {kname} launched {n} times in "
+                                 f"{steps} steps")
+
+
+def _launch_key(kernel: str):
+    """The launch-count key of a kernel of ``csrc/`` by its traced name
+    (the span gather's mode is its last template argument, 0 = rolled),
+    or None for any other kernel."""
+    import re
+
+    if "span_gather_kernel<" in kernel:
+        mode = re.search(r"span_gather_kernel<([^>]*)>", kernel).group(1).split(",")[-1]
+        return "span_gather_sorted" if mode.strip() == "0" else "span_gather_sorted[table]"
+    for name, key in (("bucket_kernel<", "bucket_grad_matmul"),
+                      ("unroll_reduce_kernel<", "unroll_reduce_fm"),
+                      ("roll_broadcast_kernel", "roll_broadcast_fm"),
+                      ("scatter_kernel<", "scatter_level")):
+        if name in kernel:
+            return key
+    return None
+
+
+def traced(run):
+    """``run()`` under ``torch.profiler``: (its result, the device ms of
+    every kernel and memset it ran, {launch-count key: kernels of
+    ``csrc/`` in the trace}) -- in a graph's replays, the kernels that
+    actually ran."""
+    import collections
+
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    dev_ms, counts = 0.0, collections.Counter()
+    for ev in prof.key_averages():
+        if getattr(ev, "is_user_annotation", False):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            dev_ms += dev_us / 1e3
+            key = _launch_key(ev.key)
+            if key:
+                counts[key] += ev.count
+    return out, dev_ms, dict(counts)
 
 
 def falling(where: str, losses, k: int):
@@ -452,9 +522,11 @@ def lamino_chip(dev, entry_of) -> dict:
     tr = T.Trainer(lcfg, workdir=os.path.join("logs", "chip_smoke_lamino"), device=dev)
     torch.cuda.synchronize()
     _build.reset_launches()
-    _, wall = timed(tr.start)
+    # the trace counts the kernels that ran (the eval launches none of csrc/)
+    (_, _, trace_counts), wall = timed(lambda: traced(tr.start))
     launches = dict(_build.LAUNCHES)
-    check_launches("lamino_chip", launches, 50)
+    check_exact("lamino_chip", launches, 50)
+    check_exact("lamino_chip (profiler trace)", trace_counts, 50)
     first, last = falling("lamino_chip", tr.losses, 10)
     step_ms = float(np.median(tr.step_ms))
     ev = tr.eval_metrics[0]
@@ -463,10 +535,12 @@ def lamino_chip(dev, entry_of) -> dict:
         config="configs/lamino_chip.yaml", scan=scan, generate_s=gen_s,
         lit_fraction=lit, projection_max=pmax, steps=len(tr.losses), wall_s=wall,
         median_step_ms=step_ms, rays_per_s=n_rays / (step_ms / 1e3),
-        loss_first10=first, loss_last10=last, eval_epoch0=ev, launches=launches)
+        loss_first10=first, loss_last10=last, eval_epoch0=ev, launches=launches,
+        trace_counts=trace_counts)
     print(f"e2 lamino_chip: {len(tr.losses)} steps in {wall:.1f} s wall (eval "
-          f"included), median step {step_ms:.3f} ms, {n_rays / (step_ms / 1e3):.0f} "
-          f"rays/s, loss first-10 {first:.6g} last-10 {last:.6g}, launches {launches}")
+          f"included, under the profiler), median step {step_ms:.3f} ms, "
+          f"{n_rays / (step_ms / 1e3):.0f} rays/s, loss first-10 {first:.6g} last-10 "
+          f"{last:.6g}, launches {launches}, kernels in the trace {trace_counts}")
     print(f"e2 eval (epoch 0): proj_psnr {ev['proj_psnr']:.3f} dB, psnr_3d "
           f"{ev['psnr_3d']:.3f} dB, ssim_3d {ev['ssim_3d']:.4f}")
     for kname in MAIN_NEEDS:
@@ -571,13 +645,10 @@ def real_scan(dev, record, entry_of) -> dict:
     _build.reset_launches()
     timer = StepTimer(dev)
     timer.tick()
-    step_losses = []
-    for v in views:
-        step_losses.append(tr.train_step(v))
-        timer.tick()
-    rlosses = torch.stack(step_losses).cpu().numpy()
+    rlosses, _, trace_counts = traced(lambda: tr.train_steps(views, timer).cpu().numpy())
     launches = dict(_build.LAUNCHES)
-    check_launches("real scan", launches, TRAIN_STEPS)
+    check_exact("real scan", launches, TRAIN_STEPS)
+    check_exact("real scan (profiler trace)", trace_counts, TRAIN_STEPS)
     first, last = falling("real scan", rlosses, 5)
     step_ms = float(np.median(timer.step_ms()))
     ev, eval_s = timed(lambda: tr.eval_step(tr.global_step, 0))
@@ -590,12 +661,13 @@ def real_scan(dev, record, entry_of) -> dict:
         ray_mode=tr.train_dset.ray_mode, use_mask=tr.use_mask, n_rays=REAL_RAYS,
         steps=len(rlosses), median_step_ms=step_ms,
         rays_per_s=REAL_RAYS / (step_ms / 1e3), loss_first5=first, loss_last5=last,
-        eval=ev, eval_s=eval_s, launches=launches)
+        eval=ev, eval_s=eval_s, launches=launches, trace_counts=trace_counts)
     print(f"e3 real scan: trainer with its in-memory datasets in {load_s:.2f} s; "
           f"ray_mode {tr.train_dset.ray_mode}, use_mask {tr.use_mask}; "
-          f"{len(rlosses)} steps of {REAL_RAYS} rays, median {step_ms:.3f} ms, "
-          f"{REAL_RAYS / (step_ms / 1e3):.0f} rays/s, loss first-5 {first:.6g} "
-          f"last-5 {last:.6g}, launches {launches}")
+          f"{len(rlosses)} steps of {REAL_RAYS} rays (under the profiler), median "
+          f"{step_ms:.3f} ms, {REAL_RAYS / (step_ms / 1e3):.0f} rays/s, loss first-5 "
+          f"{first:.6g} last-5 {last:.6g}, launches {launches}, kernels in the trace "
+          f"{trace_counts}")
     print(f"e3 masked eval ({eval_s:.2f} s): " + ", ".join(
         f"{k} {v:.4g}" for k, v in ev.items()))
     for kname in MAIN_NEEDS:
@@ -627,6 +699,35 @@ def real_scan(dev, record, entry_of) -> dict:
 
 
 
+def epoch_numbers(tr, order, graphed: bool) -> dict:
+    """One more epoch of ``tr`` on ``order`` timed by events (median step
+    ms), and one traced (device ms a step): through the graphed epoch
+    function, or the eager ``train_step`` loop."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
+        StepTimer)
+
+    def epoch(timer=None):
+        if graphed:
+            return tr.train_steps(order, timer)
+        out = []
+        for v in order:
+            out.append(tr.train_step(v))
+            if timer is not None:
+                timer.tick()
+        return out
+
+    timer = StepTimer(tr.device)
+    timer.tick()
+    epoch(timer)
+    med = float(np.median(timer.step_ms()))
+    _, dev_ms, _ = traced(epoch)
+    dev_ms /= len(order)
+    return dict(median_step_ms=med, device_ms=dev_ms, idle_share=1 - dev_ms / med,
+                reserved_mb=torch.cuda.memory_reserved() / 1e6)
+
+
 def param_checksum(module) -> list:
     """Each parameter tensor's sum and sum of squares, in f64."""
     return [float(x) for p in module.parameters()
@@ -654,9 +755,10 @@ def allreduce_ms(module, iters: int = 10) -> float:
 
 
 def train_steps(tr, where: str, steps: int) -> dict:
-    """``steps`` steps of ``Trainer.train_step`` with the launch counts set
-    to 0 just before and read just after; fails unless each main-path
-    kernel launched in every step and the loss is finite and falling."""
+    """``steps`` steps of ``Trainer.train_steps`` (on a mesh, the sharded
+    step's eager loop) with the launch counts set to 0 just before and
+    read just after; fails unless each main-path kernel launched in every
+    step and the loss is finite and falling."""
     import torch
 
     from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
@@ -667,11 +769,7 @@ def train_steps(tr, where: str, steps: int) -> dict:
     _build.reset_launches()
     timer = StepTimer(tr.device)
     timer.tick()
-    step_losses = []
-    for v in views:
-        step_losses.append(tr.train_step(v))
-        timer.tick()
-    losses = torch.stack(step_losses).cpu().numpy()
+    losses = tr.train_steps(views, timer).cpu().numpy()
     ms = timer.step_ms()
     launches = dict(_build.LAUNCHES)
     check_launches(where, launches, steps)
@@ -1107,24 +1205,32 @@ def main() -> int:
     del table, grads, field, dset
     torch.cuda.empty_cache()
 
-    # ---- 5. the training path: one epoch of chest_phantom_r3 ----
+    # ---- 5. the training path: one epoch of chest_phantom_r3, graphed ----
     cfg["train"]["epoch"] = 0      # one epoch: 50 views -> 50 steps
     cfg["log"]["i_save"] = 0       # no checkpoint
     cfg["log"]["i_eval"] = 1       # its epoch-0 eval
     trainer = Trainer(cfg, workdir=os.path.join("logs", "chip_smoke"), device="cuda")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    trainer.start()
-    torch.cuda.synchronize()
+    # one eager step, one capture, 49 replays (Trainer.start runs the epoch
+    # function); the trace counts the kernels that ran (the eval launches
+    # none of csrc/)
+    _, _, trace_counts = traced(trainer.start)
     wall = time.perf_counter() - t0
+    peak_graphed = torch.cuda.max_memory_allocated() / 1e6
     launches = dict(_build.LAUNCHES)
     steps = len(trainer.losses)
-    print(f"training: {steps} steps in {wall:.1f} s wall (eval included), "
-          f"launches {launches}")
-    if steps < 50:
+    print(f"training: {steps} steps in {wall:.1f} s wall (eval included, under the "
+          f"profiler), launches {launches}, kernels in the trace {trace_counts}")
+    if steps != 50:
         raise AssertionError(f"the main path ran {steps} steps, not 50")
-    check_launches("main path", launches, 50)
+    graphed = trainer._epoch_fn.graphed
+    if graphed.graph is None:
+        raise AssertionError("the main path's epoch captured no graph")
+    check_exact("main path", launches, 50)
+    check_exact("main path (profiler trace)", trace_counts, 50)
     for kname in MAIN_NEEDS:
         entry_of(kname)["launches"] = int(launches.get(kname, 0))
     first, last = falling("main path", trainer.losses, 10)
@@ -1133,11 +1239,51 @@ def main() -> int:
     ev = trainer.eval_metrics[0]
     print(f"loss: first-10 mean {first:.6g}, last-10 mean {last:.6g}")
     print(f"step: median {step_ms:.3f} ms, {n_rays / (step_ms / 1e3):.0f} rays/s "
-          f"({n_rays} rays x {n_samples} samples per step)")
+          f"({n_rays} rays x {n_samples} samples per step; the epoch's first "
+          f"step eager, with the capture)")
     print(f"eval (epoch 0): proj_psnr {ev['proj_psnr']:.3f} dB, "
           f"psnr_3d {ev['psnr_3d']:.3f} dB, ssim_3d {ev['ssim_3d']:.4f}")
-    del trainer
+    order = torch.as_tensor(trainer._view_order(0), device=dev)
+    # 5 more replayed steps: any host sync raises
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_steps(order[:5])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if trainer._epoch_fn.graphed.graph is not graphed.graph:
+        raise AssertionError("the main path's graph was captured again")
+    print("host syncs in 5 replayed steps: 0 (set_sync_debug_mode('error'))")
+    modes = {"graphed": epoch_numbers(trainer, order, graphed=True)}
+    modes["graphed"]["peak_mb_first_epoch"] = peak_graphed
+    del trainer, graphed
     torch.cuda.empty_cache()
+
+    # the same 50 steps through the eager Trainer.train_step loop, from the
+    # same seed, after the same eval (it draws nothing): the losses
+    # torch.equal to the graphed epoch's
+    eager = Trainer(cfg, workdir=os.path.join("logs", "chip_smoke_eager"), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager.eval_step(0, 0)
+    eager_losses = torch.stack([eager.train_step(v) for v in order]).cpu()
+    peak_eager = torch.cuda.max_memory_allocated() / 1e6
+    if not torch.equal(eager_losses, torch.tensor(main_losses)):
+        bad = int((eager_losses != torch.tensor(main_losses)).sum())
+        raise AssertionError(f"the eager loop's losses differ from the graphed "
+                             f"epoch's at {bad} of 50 steps: {eager_losses.tolist()} "
+                             f"vs {main_losses}")
+    modes["eager"] = epoch_numbers(eager, order, graphed=False)
+    modes["eager"]["peak_mb_first_epoch"] = peak_eager
+    del eager
+    torch.cuda.empty_cache()
+    for mode, m in modes.items():
+        print(f"{mode} step ({smi}): median {m['median_step_ms']:.3f} ms, "
+              f"{n_rays / (m['median_step_ms'] / 1e3):.0f} rays/s, device "
+              f"{m['device_ms']:.3f} ms a step, idle share {m['idle_share']:.3f}, peak "
+              f"memory {m['peak_mb_first_epoch']:.1f} MB (epoch-0 eval and first "
+              f"epoch), reserved {m['reserved_mb']:.1f} MB")
+    print("eager loop: 50 losses torch.equal to the graphed epoch's")
 
     # ---- e. the data side on the card ----
     data_line = data_side(dev, record, entry_of)
@@ -1174,22 +1320,20 @@ def main() -> int:
         _build.reset_launches()
         timer = StepTimer(dev)
         timer.tick()
-        step_losses = []
-        for v in views:
-            step_losses.append(tr.train_step(v))
-            timer.tick()
-        plosses = torch.stack(step_losses).cpu().numpy()
+        plosses, _, ptrace = traced(lambda: tr.train_steps(views, timer).cpu().numpy())
         pms = timer.step_ms()
         plaunch = dict(_build.LAUNCHES)
-        check_launches(f"{pname} path", plaunch, TRAIN_STEPS, need)
+        check_exact(f"{pname} path", plaunch, TRAIN_STEPS, need)
+        check_exact(f"{pname} path (profiler trace)", ptrace, TRAIN_STEPS, need)
         pf, pl = falling(f"{pname} path", plosses, 5)
         pmed = float(np.median(pms))
         paths[pname] = dict(encoder=enc_over, steps=len(plosses), median_step_ms=pmed,
                             rays_per_s=n_rays / (pmed / 1e3), loss_first5=pf,
-                            loss_last5=pl, launches=plaunch)
-        print(f"path {pname}: {len(plosses)} steps, median {pmed:.3f} ms, "
-              f"{n_rays / (pmed / 1e3):.0f} rays/s, loss first-5 {pf:.6g} "
-              f"last-5 {pl:.6g}, launches {plaunch}")
+                            loss_last5=pl, launches=plaunch, trace_counts=ptrace)
+        print(f"path {pname}: {len(plosses)} steps (under the profiler), median "
+              f"{pmed:.3f} ms, {n_rays / (pmed / 1e3):.0f} rays/s, loss first-5 "
+              f"{pf:.6g} last-5 {pl:.6g}, launches {plaunch}, kernels in the trace "
+              f"{ptrace}")
         for kname, mode in (("bucket_grad_matmul", {"xor": "xor_d0", "rolled": "bf16_out"}),
                             ("unroll_reduce_fm", {"rolled": "bf16_in"})):
             if pname in mode:
@@ -1211,7 +1355,8 @@ def main() -> int:
     print(json.dumps({"kernels": line, "train": {
         "config": cfg_path, "steps": steps, "median_step_ms": step_ms,
         "rays_per_s": n_rays / (step_ms / 1e3), "loss_first10": first,
-        "loss_last10": last, "eval_epoch0": ev}, "paths": paths,
+        "loss_last10": last, "eval_epoch0": ev, "trace_counts": trace_counts,
+        "eager_losses_equal": True, "modes": modes}, "paths": paths,
         "microbench": bench_rows, "card": smi}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,7 @@ real-data formatter."""
 
 from .dataset import (  # noqa: F401
     ProjectionDataset,
+    gather_batch,
     gather_view_batch,
     load_dataset,
     load_pickle,

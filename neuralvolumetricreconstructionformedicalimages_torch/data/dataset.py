@@ -127,6 +127,50 @@ def gather_view_batch(arrays: Dict[str, torch.Tensor], view: int,
     return {"rays": rays, "projs": projs, "mask": mask, "pix": flat_idx}
 
 
+def gather_batch(arrays: Dict[str, torch.Tensor], views: torch.Tensor,
+                 n_rays: int,
+                 generator: Optional[torch.Generator] = None,
+                 r: Optional[torch.Tensor] = None,
+                 geo: Optional[G.ConeGeometry] = None,
+                 near: float = 0.0, far: float = 0.0
+                 ) -> Dict[str, torch.Tensor]:
+    """:func:`gather_view_batch` for every view of ``views`` at once (the
+    JAX step's ``vmap`` of it): ``n_rays`` pixels of each, concatenated in
+    view order ([len(views) * n_rays] rays).
+
+    ``views`` is an int64 tensor [n_batch] on the arrays' device, so a
+    captured step reads its views from a buffer.  The flat arrays are
+    indexed at ``view * H * W + pixel``: no step copies a view.  ``r``
+    ([n_batch, n_rays]) is the pool draw; by default one ``[n_batch,
+    n_rays]`` uniform draw from ``generator``, which on the CPU is the
+    per-view loop's draws in order.  Bit-equal to :func:`gather_view_batch`
+    view by view, concatenated.
+    """
+    pools = arrays["pools"]
+    n_batch = views.shape[0]
+    _, H, W = arrays["projs"].shape
+    if r is None:
+        count = arrays["pool_counts"][views].to(torch.float32)[:, None]
+        u = torch.rand((n_batch, n_rays), generator=generator, device=pools.device)
+        r = torch.minimum((u * count).long(), count.long() - 1)
+    flat_idx = pools[views[:, None], r.reshape(n_batch, n_rays).long()].long()
+    idx = (views[:, None] * (H * W) + flat_idx).reshape(-1)
+    projs = arrays["projs"].reshape(-1)[idx]
+    mask = arrays["mask"].reshape(-1)[idx]
+    if "rays" in arrays:
+        rays = arrays["rays"].reshape(-1, 8)[idx]
+    else:
+        if geo is None:
+            raise ValueError("on-the-fly ray mode needs geo/near/far passed "
+                             "to gather_batch")
+        Wd = geo.nDetector[0]
+        rows = flat_idx // Wd
+        cols = flat_idx - rows * Wd
+        ro, rd = G.rays_for_pixels(geo, arrays["angles"][views], rows, cols)
+        rays = G.pack_rays(ro.reshape(-1, 3), rd.reshape(-1, 3), near, far)
+    return {"rays": rays, "projs": projs, "mask": mask, "pix": flat_idx.reshape(-1)}
+
+
 def load_pickle(path: str) -> Dict[str, Any]:
     """Load a reference-format scan pickle (numpy objects only; unpickle
     only files this project wrote or trusts)."""

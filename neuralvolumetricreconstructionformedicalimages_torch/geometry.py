@@ -19,6 +19,7 @@ contractions as explicit float32 multiply-and-sum (never a TF32 matmul).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -74,6 +75,22 @@ def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
 
 
+@functools.lru_cache(maxsize=None)
+def _r21_on(device: torch.device) -> torch.Tensor:
+    """``R2(pi/2, z) @ R1(-pi/2, x)`` in float64 on ``device``, made once per
+    device: a pose then copies nothing from the host, so a step that makes
+    rays on the fly can be captured in a CUDA graph."""
+    phi1 = -np.pi / 2
+    R1 = np.array([[1.0, 0.0, 0.0],
+                   [0.0, np.cos(phi1), -np.sin(phi1)],
+                   [0.0, np.sin(phi1), np.cos(phi1)]], dtype=np.float32)
+    phi2 = np.pi / 2
+    R2 = np.array([[np.cos(phi2), -np.sin(phi2), 0.0],
+                   [np.sin(phi2), np.cos(phi2), 0.0],
+                   [0.0, 0.0, 1.0]], dtype=np.float32)
+    return torch.as_tensor((R2 @ R1).astype(np.float64), device=device)
+
+
 def angle_to_pose(DSO: float, angle, tilt_angle_deg: float,
                   device="cpu") -> torch.Tensor:
     """4x4 pose of the source/detector frame at scan angle ``angle`` (rad).
@@ -87,16 +104,7 @@ def angle_to_pose(DSO: float, angle, tilt_angle_deg: float,
     c, s = torch.cos(angle), torch.sin(angle)
     ct, st = float(np.cos(tilt)), float(np.sin(tilt))
     zero, one = torch.zeros_like(c), torch.ones_like(c)
-
-    phi1 = -np.pi / 2
-    R1 = np.array([[1.0, 0.0, 0.0],
-                   [0.0, np.cos(phi1), -np.sin(phi1)],
-                   [0.0, np.sin(phi1), np.cos(phi1)]], dtype=np.float32)
-    phi2 = np.pi / 2
-    R2 = np.array([[np.cos(phi2), -np.sin(phi2), 0.0],
-                   [np.sin(phi2), np.cos(phi2), 0.0],
-                   [0.0, 0.0, 1.0]], dtype=np.float32)
-    R21 = torch.as_tensor((R2 @ R1).astype(np.float64), device=angle.device)
+    R21 = _r21_on(angle.device)
 
     R3 = torch.stack([
         torch.stack([c, -s, zero], -1),
@@ -177,13 +185,15 @@ def rays_for_pixels(geo: ConeGeometry, angle, rows: torch.Tensor,
     """Rays for a subset of detector pixels of one view: ([P, 3], [P, 3]).
 
     Same math as :func:`rays_for_angle` restricted to the sampled pixels
-    (the on-the-fly ray mode of ``data/dataset.py``).
+    (the on-the-fly ray mode of ``data/dataset.py``).  With ``angle`` [N]
+    and ``rows``/``cols`` [N, P] (P pixels of each of N views), ([N, P, 3],
+    [N, P, 3]), each view's rays the values of its own call.
     """
     pose = angle_to_pose(geo.DSO, angle, geo.tilt_angle, rows.device)
     W, H = geo.nDetector
     u = (cols.to(torch.float32) + 0.5 - W / 2) * geo.dDetector[0] + geo.offDetector[0]
     v = (rows.to(torch.float32) + 0.5 - H / 2) * geo.dDetector[1] + geo.offDetector[1]
-    return _rays(geo, pose[None], u, v)
+    return _rays(geo, pose[..., None, :, :], u, v)
 
 
 def get_near_far(geo: ConeGeometry, tolerance: float = 0.005) -> Tuple[float, float]:
@@ -226,7 +236,8 @@ def voxel_grid(geo: ConeGeometry) -> np.ndarray:
 
 def pack_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
               far: float) -> torch.Tensor:
-    """Pack to the 8-float ray layout [o(3), d(3), near, far]."""
-    nf = torch.tensor([near, far], dtype=rays_o.dtype, device=rays_o.device)
-    nf = nf.expand(rays_o.shape[:-1] + (2,))
-    return torch.cat([rays_o, rays_d, nf], dim=-1)
+    """Pack to the 8-float ray layout [o(3), d(3), near, far].  near and
+    far are filled on the rays' device (no host-to-device copy)."""
+    shape = rays_o.shape[:-1] + (1,)
+    return torch.cat([rays_o, rays_d, rays_o.new_full(shape, near),
+                      rays_o.new_full(shape, far)], dim=-1)

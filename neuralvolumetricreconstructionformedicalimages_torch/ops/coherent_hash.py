@@ -38,7 +38,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .hash_encoding import HashGridSpec
+from .hash_encoding import HashGridSpec, _scales_on
 
 # a1 = 1 keeps x-adjacent cells adjacent in the table; a2/a3 are the XOR
 # primes of the reference hash reused as linear multipliers.
@@ -82,10 +82,28 @@ def corner_offsets(spec: HashGridSpec) -> np.ndarray:
     return (off & (spec.table_size - 1)).astype(np.int32)
 
 
-def _mult_u32(spec: HashGridSpec, device) -> torch.Tensor:
-    """Multipliers as their unsigned values in int64, [L, D]."""
+# The constants a step reads, each made on a device once per (spec,
+# device) and kept: a step then makes no host-to-device copy, which a
+# captured CUDA graph could not replay.  Callers must not write to them.
+
+@functools.lru_cache(maxsize=None)
+def _mult_on(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
+    """Multipliers as their unsigned values in int64, [L, D] on ``device``."""
     m = multipliers(spec).view(np.uint32).astype(np.int64)
     return torch.as_tensor(m, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _bits_on(input_dim: int, device: torch.device) -> torch.Tensor:
+    """:func:`corner_bits` as an int32 [2^D, D] tensor on ``device``."""
+    return torch.as_tensor(corner_bits(input_dim), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets_on(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
+    """:func:`corner_offsets` as an int32 [L, K] tensor on ``device``."""
+    return torch.as_tensor(corner_offsets(spec), dtype=torch.int32,
+                           device=device).contiguous()
 
 
 def base_and_frac(spec: HashGridSpec, x01: torch.Tensor
@@ -96,13 +114,13 @@ def base_and_frac(spec: HashGridSpec, x01: torch.Tensor
       base: int32 [B, L] table index of corner 0 (already mod 2^S)
       frac: float32 [B, L, D] in-cell position
     """
-    scales = torch.as_tensor(spec.scales, device=x01.device)  # [L]
+    scales = _scales_on(spec, x01.device)                         # [L]
     pos = x01[:, None, :].to(torch.float32) * scales[None, :, None]
     pos = pos + 0.5
     pos_grid = torch.floor(pos)
     frac = pos - pos_grid
     g = pos_grid.to(torch.int64)
-    raw = (g * _mult_u32(spec, x01.device)[None]).sum(-1)  # [B, L]
+    raw = (g * _mult_on(spec, x01.device)[None]).sum(-1)          # [B, L]
     return (raw & (spec.table_size - 1)).to(torch.int32), frac
 
 
@@ -114,19 +132,19 @@ def base_and_frac_t(spec: HashGridSpec, x01: torch.Tensor
     the per-level sorts consume directly.
     """
     xT = x01.t().to(torch.float32)                                # [D, B]
-    scales = torch.as_tensor(spec.scales, device=x01.device)      # [L]
+    scales = _scales_on(spec, x01.device)                         # [L]
     pos = xT[None, :, :] * scales[:, None, None]                  # [L, D, B]
     pos = pos + 0.5
     pos_grid = torch.floor(pos)
     frac = pos - pos_grid
     g = pos_grid.to(torch.int64)
-    raw = (g * _mult_u32(spec, x01.device)[:, :, None]).sum(1)    # [L, B]
+    raw = (g * _mult_on(spec, x01.device)[:, :, None]).sum(1)     # [L, B]
     return (raw & (spec.table_size - 1)).to(torch.int32), frac.contiguous()
 
 
 def corner_weights(spec: HashGridSpec, frac: torch.Tensor) -> torch.Tensor:
     """Trilinear weights [B, L, 2^D] from frac [B, L, D]."""
-    bits = torch.as_tensor(corner_bits(spec.input_dim), device=frac.device)
+    bits = _bits_on(spec.input_dim, frac.device)
     t = torch.where(bits[None, None] > 0, frac[:, :, None, :],
                     1.0 - frac[:, :, None, :])                    # [B, L, K, D]
     return torch.prod(t, dim=-1)
@@ -139,7 +157,7 @@ def corner_weight_grads(spec: HashGridSpec, frac: torch.Tensor) -> torch.Tensor:
     1 - f``, by explicit products (no division: stable at f in {0, 1}).
     """
     D = spec.input_dim
-    bits = torch.as_tensor(corner_bits(D), device=frac.device)
+    bits = _bits_on(D, frac.device)
     t = torch.where(bits[None, None] > 0, frac[:, :, None, :],
                     1.0 - frac[:, :, None, :])                    # [B, L, K, D]
     sign = torch.where(bits > 0, 1.0, -1.0).to(frac.dtype)        # [K, D]
@@ -164,7 +182,7 @@ def coherent_encode_reference(x01: torch.Tensor, table: torch.Tensor,
     L, S, C = table.shape
     base, frac = base_and_frac(spec, x01)
     w = corner_weights(spec, frac)                                # [B, L, K]
-    offs = torch.as_tensor(corner_offsets(spec), device=x01.device)
+    offs = _offsets_on(spec, x01.device)
     idx = (base[:, :, None].long() + offs[None].long()) & (S - 1)  # [B, L, K]
     level_off = torch.arange(L, device=x01.device)[None, :, None] * S
     vals = table.reshape(L * S, C)[idx + level_off]               # [B, L, K, C]
@@ -282,7 +300,7 @@ def _backward(spec: HashGridSpec, table_dtype, C: int, res, g: torch.Tensor,
     gv = torch.einsum("blc,blkc->blk", g, vals_kc)                 # [B, L, K]
     grad_frac = torch.einsum("blk,blkd->bld", gv,
                              corner_weight_grads(spec, frac))     # [B, L, D]
-    scales = torch.as_tensor(spec.scales, device=g.device)
+    scales = _scales_on(spec, g.device)
     grad_x01 = torch.sum(grad_frac * scales[None, :, None], dim=1)  # [B, D]
     return grad_x01, grad_table
 

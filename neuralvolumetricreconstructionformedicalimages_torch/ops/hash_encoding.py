@@ -87,6 +87,29 @@ class HashGridSpec:
         return u * 2e-4 - 1e-4
 
 
+@functools.lru_cache(maxsize=None)
+def _scales_on(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
+    """``spec.scales`` as an f32 [L] tensor on ``device``, made once per
+    (spec, device): a step then makes no host-to-device copy, which a
+    captured CUDA graph could not replay."""
+    return torch.as_tensor(spec.scales, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _strides_on(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
+    """Dense row-major strides ``(res+1)^d`` [L, D] as int64 on ``device``,
+    wrapped mod 2^32 like the reference's uint32 math (cached)."""
+    res_p1 = (spec.resolutions + 1).astype(np.uint64)
+    strides = np.stack([res_p1 ** d for d in range(spec.input_dim)], -1) & 0xFFFFFFFF
+    return torch.as_tensor(strides.astype(np.int64), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_on(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
+    """``spec.dense_levels`` as a bool [L] tensor on ``device`` (cached)."""
+    return torch.as_tensor(spec.dense_levels, device=device)
+
+
 def hash_grid_indices(spec: HashGridSpec, x01: torch.Tensor):
     """Corner indices + interpolation weights for points ``x01`` in [0, 1].
 
@@ -101,18 +124,18 @@ def hash_grid_indices(spec: HashGridSpec, x01: torch.Tensor):
 def _indices_weights_frac(spec: HashGridSpec, x01: torch.Tensor):
     """:func:`hash_grid_indices` plus ``frac`` [B, L, D], which the analytic
     input gradients need."""
-    from .coherent_hash import corner_bits
+    from .coherent_hash import _bits_on
 
     D = spec.input_dim
     S = spec.table_size
     dev = x01.device
-    scales = torch.as_tensor(spec.scales, device=dev)              # [L]
+    scales = _scales_on(spec, dev)                                 # [L]
     pos = x01[:, None, :].to(torch.float32) * scales[None, :, None]
     pos = pos + 0.5
     pos_grid = torch.floor(pos)
     frac = pos - pos_grid                                          # [B, L, D]
 
-    bits = torch.as_tensor(corner_bits(D), device=dev)             # [K, D]
+    bits = _bits_on(D, dev)                                        # [K, D]
     corner = pos_grid.to(torch.int64)[:, :, None, :] + bits[None, None]
 
     # Interp weight: prod_d (bit ? frac : 1 - frac).
@@ -123,9 +146,7 @@ def _indices_weights_frac(spec: HashGridSpec, x01: torch.Tensor):
     # mod 2^32 like the reference's uint32 math (a wrapped stride only
     # occurs on hashed levels, where the dense branch is discarded).  Dense
     # levels are in range by construction ((res+1)^D <= S).
-    res_p1 = (spec.resolutions + 1).astype(np.uint64)
-    strides = np.stack([res_p1 ** d for d in range(D)], -1) & 0xFFFFFFFF
-    strides = torch.as_tensor(strides.astype(np.int64), device=dev)  # [L, D]
+    strides = _strides_on(spec, dev)                               # [L, D]
     idx_dense = torch.sum(corner * strides[None, :, None, :], dim=-1)
 
     # XOR-prime hash; hashed levels have exactly 2^S entries -> mask.
@@ -134,7 +155,7 @@ def _indices_weights_frac(spec: HashGridSpec, x01: torch.Tensor):
     for d in range(1, D):
         idx_hash = idx_hash ^ (corner[..., d] * primes[d])
 
-    dense = torch.as_tensor(spec.dense_levels, device=dev)          # [L] bool
+    dense = _dense_on(spec, dev)                                    # [L] bool
     idx = torch.where(dense[None, :, None], idx_dense, idx_hash) & (S - 1)
     return idx.to(torch.int32), w, frac
 
@@ -214,7 +235,7 @@ class _HashEncodeFast(torch.autograd.Function):
         gv = torch.einsum("blc,blkc->blk", g, vals.to(torch.float32))
         grad_frac = torch.einsum("blk,blkd->bld", gv,
                                  corner_weight_grads(spec, frac))
-        scales = torch.as_tensor(spec.scales, device=g.device)
+        scales = _scales_on(spec, g.device)
         grad_x01 = torch.sum(grad_frac * scales[None, :, None], dim=1)
         return grad_x01, grad_table, None
 

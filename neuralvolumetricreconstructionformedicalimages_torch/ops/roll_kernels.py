@@ -17,25 +17,16 @@ versions beside them (per-(level, corner) ``torch.roll``).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
-from .coherent_hash import corner_offsets
+from .coherent_hash import _offsets_on, corner_offsets
 from .hash_encoding import HashGridSpec
 
 # Width of the wrapped copy that the bucket backward appends to the rolled
 # gradient (JAX: ``_BLK + 128``).  Kept for parity of shapes; the CUDA
 # unroll kernel takes columns mod S and never reads the copy.
 _PAD = 4096 + 128
-
-
-@functools.lru_cache(maxsize=None)
-def _offsets_on(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
-    """corner_offsets as an int32 [L, K] tensor on ``device`` (cached)."""
-    return torch.as_tensor(corner_offsets(spec), dtype=torch.int32,
-                           device=device).contiguous()
 
 
 def wrap_extend(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -30,21 +30,29 @@ exact only below 2^24.  Tie order only changes the order of the f32 sums.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 from .bucket_matmul import bucket_grad_matmul
-from .coherent_hash import base_and_frac_t, corner_bits, corner_offsets
+from .coherent_hash import _offsets_on, base_and_frac_t, corner_bits, corner_offsets
 from .hash_encoding import HashGridSpec
 from .roll_kernels import (
     _PAD,
-    _offsets_on,
     _unroll_sum,
     roll_broadcast_fm_plain,
     unroll_reduce_fm,
 )
 
 _PACK_HI = (2047.0, 2047.0, 1023.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_hi_on(device: torch.device) -> torch.Tensor:
+    """``_PACK_HI`` as an f32 [3] tensor on ``device``, made once per device
+    (a step then copies nothing from the host)."""
+    return torch.tensor(_PACK_HI, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +269,7 @@ def _pack_q(q0, q1, q2) -> torch.Tensor:
 def pack_frac(frac: torch.Tensor) -> torch.Tensor:
     """[..., 3] f32 fracs in [0, 1) -> [...] int32, 11/11/10-bit fixed point
     (quantisation ~2.4e-4 of the in-cell position)."""
-    hi = torch.tensor(_PACK_HI, device=frac.device)
+    hi = _pack_hi_on(frac.device)
     q = torch.minimum(torch.clamp(frac * hi + 0.5, min=0.0), hi).to(torch.int32)
     return _pack_q(q[..., 0], q[..., 1], q[..., 2])
 
@@ -280,7 +288,7 @@ def unpack_frac(pk: torch.Tensor) -> torch.Tensor:
 
 def pack_frac_t(frac_t: torch.Tensor) -> torch.Tensor:
     """Level-major :func:`pack_frac`: [L, 3, B] f32 -> [L, B] int32."""
-    hi = torch.tensor(_PACK_HI, device=frac_t.device)[None, :, None]
+    hi = _pack_hi_on(frac_t.device)[None, :, None]
     q = torch.minimum(torch.clamp(frac_t * hi + 0.5, min=0.0), hi).to(torch.int32)
     return _pack_q(q[:, 0], q[:, 1], q[:, 2])
 

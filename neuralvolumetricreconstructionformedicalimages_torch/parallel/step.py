@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-from ..data.dataset import gather_view_batch
+from ..data.dataset import gather_batch
 from ..losses import get_loss_fn, global_sum
 from ..models.density_field import DensityField
 from ..ops.sampling import stratified_z_vals
@@ -175,11 +175,13 @@ def _make_shard_body(cfg: Dict[str, Any], field: DensityField, optimizer,
 
     def step(arrays, views, generator, lr, *, batch=None, t_rand=None, noise=None):
         if batch is None:
-            if len(views) != n_batch:
-                raise ValueError(f"{len(views)} views given, the step takes {n_batch}")
-            parts = [gather_view_batch(arrays, int(v), local_rays, generator, geo=geo,
-                                       near=near, far=far) for v in views]
-            batch = {k: torch.cat([p[k] for p in parts]) for k in ("rays", "projs", "mask")}
+            views = torch.as_tensor(views, dtype=torch.long,
+                                    device=arrays["pools"].device)
+            if tuple(views.shape) != (n_batch,):
+                raise ValueError(f"views of shape {tuple(views.shape)}, the step "
+                                 f"takes [{n_batch}]")
+            batch = gather_batch(arrays, views, local_rays, generator, geo=geo,
+                                 near=near, far=far)
         set_lr(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch, generator, t_rand, noise)

@@ -1,10 +1,13 @@
-"""Training loop: a per-step PyTorch loop + the reference-shaped orchestrator.
+"""Training loop: the epoch function + the reference-shaped orchestrator.
 
 Port of the JAX ``train/trainer.py``:
 
-- one optimizer step per sampled view batch (the JAX package scans a
-  jitted epoch; here a Python loop launches each step without waiting for
-  the device -- the losses of an epoch are read back once, at its end);
+- ``make_epoch_fn``: one optimizer step per sampled view batch over an
+  epoch.  The JAX package jits the epoch as one ``lax.scan``; on the card
+  the port captures one step as a CUDA graph and replays it for every
+  step, with no host sync between the steps -- the host touches the
+  device once per epoch to upload the view order, and reads the losses
+  back once, at its end;
 - Adam(0.9, 0.999) with the StepLR schedule in optimizer-step units;
 - beam-masked MSE (or any ``train.loss`` of ``losses.get_loss_fn``);
 - checkpoints with ``torch.save`` (newest two kept) and resume;
@@ -31,17 +34,19 @@ import re
 import struct
 import time
 import zlib
-from typing import Any, Dict, List, Optional
+from collections import Counter
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..config import with_defaults
-from ..data.dataset import gather_view_batch, load_dataset
+from ..data.dataset import gather_batch, load_dataset
 from ..losses import get_loss_fn, global_sum
 from ..metrics import cast_to_image, get_mse, get_psnr, get_psnr_3d, get_ssim_3d
 from ..models import DensityField, get_encoder, get_network
+from ..ops import _build
 from ..render import query_field, render_image, render_rays
 from ..utils.logging import ExperimentLogger
 from ..utils.profiling import StepTimer
@@ -123,6 +128,188 @@ def make_loss_fn(cfg: Dict[str, Any], use_mask: bool, group=None):
     return loss_fn
 
 
+# The draws a step can be fed in place of its generator's (tests feed the
+# JAX package's): the pool draw [n_batch, n_rays], the stratified jitter
+# [n_batch * n_rays, n_samples] and the raw noise of the coarse pass.
+DRAWS = ("r", "t_rand", "noise")
+
+
+def make_train_step(cfg: Dict[str, Any], field: DensityField, optimizer, *,
+                    n_rays: int, n_batch: int, use_mask: bool,
+                    generator: Optional[torch.Generator],
+                    field_fine: Optional[DensityField] = None,
+                    geo=None, near: float = 0.0, far: float = 0.0) -> Callable:
+    """One optimizer step: ``step(arrays, views, *, r=None, t_rand=None,
+    noise=None) -> loss`` (on the device, detached).
+
+    ``views`` ([n_batch] int64 on the arrays' device): ``n_rays`` pixels of
+    each (``gather_batch``), rendered and reduced to the loss, whose
+    gradient ``optimizer`` applies at its current rate (``set_lr``).  The
+    draws come from ``generator`` unless fed (:data:`DRAWS`).  Every op
+    runs on the device without a host sync, so that the step can be
+    captured in a CUDA graph; ``geo``/``near``/``far`` enable the
+    on-the-fly ray mode (see data/dataset.py).
+    """
+    loss_fn = make_loss_fn(cfg, use_mask)
+
+    def step(arrays, views, *, r=None, t_rand=None, noise=None):
+        if tuple(views.shape) != (n_batch,):
+            raise ValueError(f"views of shape {tuple(views.shape)}, the step "
+                             f"takes [{n_batch}]")
+        batch = gather_batch(arrays, views, n_rays, generator, r=r, geo=geo,
+                             near=near, far=far)
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(field, field_fine, batch, generator, t_rand=t_rand,
+                       noise=noise)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+class _GraphedStep:
+    """A training step captured once as a CUDA graph and replayed.
+
+    The first call (and the first after the graph's key changed: an input's
+    shape, or a tensor the graph reads that moved) runs the step eagerly on
+    the capture stream -- it warms the allocator, cuBLAS on that stream and
+    Adam's state -- and then captures it, with ``generator`` registered so
+    that every replay draws on from where the last left off.  Every later
+    call copies its inputs into the graph's buffers and replays it.
+
+    A capture adds nothing to ``_build.LAUNCHES``; each replay adds the
+    launches the capture recorded.  A capture that fails raises: nothing
+    drops back to eager steps.
+    """
+
+    def __init__(self, step: Callable, optimizer, generator):
+        self.step = step
+        self.optimizer = optimizer
+        self.generator = generator
+        self.key = None
+        self.graph = None
+        self.stream = None
+        self.static: Dict[str, torch.Tensor] = {}
+        self.loss = None
+        self.launches: Counter = Counter()
+
+    def _key(self, arrays, inputs) -> tuple:
+        opt = self.optimizer
+        held = [t for g in opt.param_groups for t in (*g["params"], g["lr"])]
+        held += [t for st in opt.state.values() for t in st.values()]
+        return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items())),
+                tuple((k, v.data_ptr(), tuple(v.shape)) for k, v in sorted(arrays.items())),
+                tuple(t.data_ptr() for t in held if isinstance(t, torch.Tensor)))
+
+    def __call__(self, arrays, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The loss of one step on ``inputs`` (``views`` and any fed
+        draws); the graph's own loss buffer after a replay."""
+        if self.key is not None and self._key(arrays, inputs) == self.key:
+            for k, v in inputs.items():
+                self.static[k].copy_(v)
+            self.graph.replay()
+            _build.LAUNCHES.update(self.launches)
+            return self.loss
+        return self._capture(arrays, inputs)
+
+    def _capture(self, arrays, inputs) -> torch.Tensor:
+        dev = inputs["views"].device
+        self.key = self.graph = self.loss = None   # free the old graph's pool
+        self.static = {}
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        main = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            loss = self.step(arrays, inputs["views"],
+                             **{k: v for k, v in inputs.items() if k != "views"})
+        main.wait_stream(self.stream)
+        loss.record_stream(main)
+        static = {k: v.clone() for k, v in inputs.items()}
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = Counter(_build.LAUNCHES)
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                static_loss = self.step(
+                    arrays, static["views"],
+                    **{k: v for k, v in static.items() if k != "views"})
+        except Exception as exc:
+            raise RuntimeError(
+                f"capturing the training step in a CUDA graph failed: "
+                f"{type(exc).__name__}: {exc}") from exc
+        finally:
+            recorded = Counter(_build.LAUNCHES)
+            recorded.subtract(before)
+            _build.LAUNCHES.clear()
+            _build.LAUNCHES.update(before)
+        self.graph, self.static, self.loss = graph, static, static_loss
+        self.launches = +recorded
+        self.key = self._key(arrays, inputs)
+        return loss
+
+
+def make_epoch_fn(cfg: Dict[str, Any], field: DensityField, optimizer,
+                  steps_per_epoch: int, *, n_rays: int, n_batch: int,
+                  use_mask: bool, generator: Optional[torch.Generator],
+                  field_fine: Optional[DensityField] = None,
+                  geo=None, near: float = 0.0, far: float = 0.0) -> Callable:
+    """One epoch of training steps (the JAX ``make_epoch_fn``'s role).
+
+    Returns ``fn(arrays, view_order [steps, n_batch], start_step, *,
+    draws=None, timer=None) -> losses [steps]`` (on the device), with
+    ``fn.step`` the step it runs (eagerly: ``Trainer.train_step``).  Step
+    ``i`` is :func:`make_train_step`'s step on ``view_order[i]`` at the
+    rate ``schedule(start_step + i)``; ``draws`` maps names of
+    :data:`DRAWS` to per-step draws ([steps, ...]) fed in place of the
+    generator's; ``timer.tick()`` (a ``StepTimer``) marks the end of every
+    step.
+
+    On the CPU the steps run eagerly, one after another.  On the card the
+    view order (and any draws) goes to the device once, the only place
+    where the host touches the device in an epoch; the first step the
+    function runs is eager, then one step is captured as a CUDA graph
+    (``_GraphedStep``) and every further step is a device copy of its views
+    into the graph's buffer and a replay, after which its loss is copied
+    into ``losses[i]``.  No step waits for the device.  The graph is kept
+    across epochs and captured again only when a shape changes or a tensor
+    it reads moved.  The rate is filled into Adam's device tensor between
+    steps (once per epoch with the StepLR schedule).
+    """
+    schedule = make_lr_schedule(cfg, steps_per_epoch)
+    step = make_train_step(cfg, field, optimizer, n_rays=n_rays, n_batch=n_batch,
+                           use_mask=use_mask, generator=generator,
+                           field_fine=field_fine, geo=geo, near=near, far=far)
+    graphed = _GraphedStep(step, optimizer, generator)
+
+    def fn(arrays, view_order, start_step: int, *, draws=None, timer=None):
+        dev = arrays["pools"].device
+        views = torch.as_tensor(view_order, dtype=torch.long, device=dev)
+        fed = {k: torch.as_tensor(v, device=dev) for k, v in (draws or {}).items()}
+        unknown = set(fed) - set(DRAWS)
+        if unknown:
+            raise ValueError(f"unknown draws {sorted(unknown)}; the step takes {DRAWS}")
+        losses = torch.empty(views.shape[0], device=dev)
+        lr = None
+        for i in range(views.shape[0]):
+            if schedule(start_step + i) != lr:
+                lr = schedule(start_step + i)
+                set_lr(optimizer, lr)
+            if dev.type == "cuda":
+                inputs = {"views": views[i], **{k: v[i] for k, v in fed.items()}}
+                losses[i] = graphed(arrays, inputs)
+            else:
+                losses[i] = step(arrays, views[i], **{k: v[i] for k, v in fed.items()})
+            if timer is not None:
+                timer.tick()
+        return losses
+
+    fn.step, fn.graphed = step, graphed
+    return fn
+
+
 # --------------------------------------------------------------------------
 # Orchestrator
 # --------------------------------------------------------------------------
@@ -192,13 +379,18 @@ class Trainer:
                            if self.n_fine > 0 else None)
         self.optimizer = make_optimizer(cfg, self._parameters())
         self.schedule = make_lr_schedule(cfg, self.steps_per_epoch)
-        self._loss_fn = make_loss_fn(cfg, self.use_mask)
         self._arrays = self.train_dset.arrays()
+        ds = self.train_dset
+        # ``train_step`` runs the epoch function's step eagerly
+        self._epoch_fn = make_epoch_fn(
+            cfg, self.field, self.optimizer, self.steps_per_epoch,
+            n_rays=self.n_rays, n_batch=self.n_batch, use_mask=self.use_mask,
+            generator=self.generator, field_fine=self.field_fine, geo=ds.geo,
+            near=ds.near, far=ds.far)
         self._sharded_step = None
         if self.mesh is not None:
             from ..parallel.step import make_sharded_train_step
 
-            ds = self.train_dset
             self._sharded_step = make_sharded_train_step(
                 cfg, self.field, self.optimizer, self.mesh, self.steps_per_epoch,
                 self.generator, n_rays=self.n_rays, n_batch=self.n_batch,
@@ -349,26 +541,38 @@ class Trainer:
 
     # -- loop ------------------------------------------------------------
     def train_step(self, views) -> torch.Tensor:
-        """One optimizer step on ``n_rays`` pixels of each view in
+        """One eager optimizer step on ``n_rays`` pixels of each view in
         ``views`` (on a mesh, of the global batch); returns the (device)
-        loss without waiting for it."""
+        loss without waiting for it.  The step of :meth:`train_steps`,
+        uncaptured; ``views`` already on the device costs no host copy."""
         if self._sharded_step is not None:
             loss = self._sharded_step(self._arrays, views, self.global_step)
             self.global_step += 1
             return loss
-        ds = self.train_dset
-        parts = [gather_view_batch(self._arrays, int(v), self.n_rays,
-                                   self.generator, geo=ds.geo, near=ds.near,
-                                   far=ds.far) for v in views]
-        batch = {k: torch.cat([p[k] for p in parts])
-                 for k in ("rays", "projs", "mask")}
+        views = torch.as_tensor(views, dtype=torch.long, device=self.device)
         set_lr(self.optimizer, self.schedule(self.global_step))
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss_fn(self.field, self.field_fine, batch, self.generator)
-        loss.backward()
-        self.optimizer.step()
+        loss = self._epoch_fn.step(self._arrays, views)
         self.global_step += 1
-        return loss.detach()
+        return loss
+
+    def train_steps(self, view_order, timer: Optional[StepTimer] = None
+                    ) -> torch.Tensor:
+        """The steps of ``view_order`` ([steps, n_batch]) from
+        ``global_step`` on: through the epoch function (a replayed CUDA
+        graph on the card), or on a mesh the sharded step's eager loop.
+        Returns the losses [steps] on the device; ``timer.tick()`` after
+        every step."""
+        if self._sharded_step is not None:
+            losses = []
+            for views in view_order:
+                losses.append(self.train_step(views))
+                if timer is not None:
+                    timer.tick()
+            return torch.stack(losses)
+        losses = self._epoch_fn(self._arrays, view_order, self.global_step,
+                                timer=timer)
+        self.global_step += len(view_order)
+        return losses
 
     def start(self, deadline: Optional[float] = None) -> None:
         """Main loop.  ``deadline``: optional absolute ``time.time()``;
@@ -391,11 +595,7 @@ class Trainer:
 
             timer = StepTimer(self.device)
             timer.tick()
-            step_losses = []
-            for views in self._view_order(idx_epoch):
-                step_losses.append(self.train_step(views))
-                timer.tick()
-            losses = torch.stack(step_losses).cpu().numpy()
+            losses = self.train_steps(self._view_order(idx_epoch), timer).cpu().numpy()
             ms = timer.step_ms()
             self.losses.extend(float(x) for x in losses)
             self.step_ms.extend(ms)

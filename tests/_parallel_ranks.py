@@ -80,6 +80,28 @@ def smoke_cfg(workdir: str, **parallel):
     return cfg
 
 
+def force_mesh_runs(tmp_path, device, n_batch: int = 1, steps: int = 6):
+    """:func:`smoke_cfg` at ``n_batch`` views a step, trained ``steps``
+    eager ``train_step`` steps by the plain trainer and by a mesh of one
+    (``parallel.force_mesh``: the sharded step on a one-rank group the
+    trainer makes and closes): ``{"plain"|"mesh": (losses, field)}``."""
+    runs = {}
+    for name, par in (("plain", {}),
+                      ("mesh", {"mesh": {"data": 1, "sample": 1}, "force_mesh": True})):
+        cfg = smoke_cfg(osp.join(str(tmp_path), name), **par)
+        cfg["train"]["n_batch"] = n_batch
+        cfg["log"].update(i_eval=0, i_save=0)
+        tr = ttrainer.Trainer(cfg, workdir=osp.join(str(tmp_path), name), device=device)
+        try:
+            assert (tr.mesh is not None) == (name == "mesh")
+            assert dist.is_initialized() == (name == "mesh")
+            runs[name] = (torch.stack([tr.train_step(v)
+                                       for v in tr._view_order(0)[:steps]]), tr.field)
+        finally:
+            tr.close()
+    return runs
+
+
 def tiny_field(params):
     field = ttrainer.build_model(with_defaults(tiny_cfg()))
     field.load_state_dict(params_from_jax(params))

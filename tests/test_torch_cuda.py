@@ -19,6 +19,7 @@ normal payloads, bit-equal on integer-valued ones, which sum exactly).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ import torch
 
 from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
 from neuralvolumetricreconstructionformedicalimages_torch.ops import bucket_matmul as bm
+from neuralvolumetricreconstructionformedicalimages_torch.ops import coherent_hash as ch
 from neuralvolumetricreconstructionformedicalimages_torch.ops import roll_kernels as rk
 from neuralvolumetricreconstructionformedicalimages_torch.ops import scatter_level as sl
 from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
@@ -398,7 +400,8 @@ def test_wrapper_checks_raise(dev):
 def wrap_offsets(monkeypatch):
     """Set every spec's corner offsets to ones at the wrap: corner 0 at 0,
     the last at S - 8 and the others at S - 1 (the offsets are cached on the
-    card per spec, so the cache is cleared around the test)."""
+    card per spec by ``coherent_hash._offsets_on``, which reads that
+    module's ``corner_offsets``, so the cache is cleared around the test)."""
     def offsets(spec):
         K = 1 << spec.input_dim
         offs = np.full((spec.num_levels, K), spec.table_size - 1, np.int32)
@@ -406,11 +409,12 @@ def wrap_offsets(monkeypatch):
         offs[:, -1] = spec.table_size - 8
         return offs
 
-    rk._offsets_on.cache_clear()
+    ch._offsets_on.cache_clear()
+    monkeypatch.setattr(ch, "corner_offsets", offsets)
     monkeypatch.setattr(rk, "corner_offsets", offsets)
     monkeypatch.setattr(sg, "corner_offsets", offsets)
     yield
-    rk._offsets_on.cache_clear()
+    ch._offsets_on.cache_clear()
 
 
 def _wrap_stream(dev, spec, B, seed, packed):
@@ -594,3 +598,197 @@ def test_generate_runs_on_card(dev):
         a, b = card[split]["projections"], cpu[split]["projections"]
         assert isinstance(a, np.ndarray) and a.dtype == np.float32
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * float(np.abs(b).max()))
+
+
+# ---- the training step captured as a CUDA graph (train/trainer.py) ----
+
+_SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "data", "smoke.pickle")
+# the main-path kernels: launched once a step (True) or never (False)
+_GRAPH_PATHS = {
+    "sorted": ({}, {"span_gather_sorted[table]": True, "bucket_grad_matmul": True,
+                    "unroll_reduce_fm": True, "span_gather_sorted": False,
+                    "roll_broadcast_fm": False}),
+    "rolled": ({"forward": "rolled", "input_grads": True},
+               {"roll_broadcast_fm": True, "bucket_grad_matmul": True,
+                "unroll_reduce_fm": True, "span_gather_sorted[table]": False}),
+    "xor": ({"hash_variant": "xor"},
+            {"bucket_grad_matmul": True, "unroll_reduce_fm": False,
+             "span_gather_sorted[table]": False}),
+}
+
+
+def _small_cfg(encoder=None, n_batch=1):
+    """The main-path encoder at 3 levels x 2^14, 64 rays x 32 samples, on
+    the smoke scan."""
+    from neuralvolumetricreconstructionformedicalimages_torch.config import with_defaults
+
+    return with_defaults({
+        "exp": {"expname": "g", "expdir": ".", "datadir": _SMOKE},
+        "network": {"net_type": "mlp", "num_layers": 4, "hidden_dim": 16,
+                    "skips": [2], "out_dim": 1, "last_activation": "sigmoid",
+                    "bound": 0.3},
+        "encoder": {"encoding": "hashgrid", "input_dim": 3, "num_levels": 3,
+                    "level_dim": 2, "base_resolution": 8, "log2_hashmap_size": 14,
+                    "forward": "sorted", "table_dtype": "bfloat16",
+                    "pack_sort": True, **(encoder or {})},
+        "render": {"n_samples": 32, "n_fine": 0, "perturb": True,
+                   "raw_noise_std": 0.0, "netchunk": 4096},
+        "train": {"epoch": 1, "n_batch": n_batch, "n_rays": 64, "lrate": 1e-2,
+                  "lrate_gamma": 0.1, "lrate_step": 10, "resume": False},
+        "log": {"i_eval": 0, "i_save": 0}})
+
+
+def _epoch_parts(dev, encoder, seed=0):
+    """A small field (:func:`_small_cfg`), its capturable optimizer and
+    generator, and the epoch function and the eager step over them."""
+    from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
+        load_dataset)
+    from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
+    from neuralvolumetricreconstructionformedicalimages_torch.train.optim import (
+        make_optimizer)
+
+    cfg = _small_cfg(encoder)
+    T.pin_fp32()
+    ds = load_dataset(_SMOKE, "train", 64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    field = T.build_model(cfg, g, dev)
+    opt = make_optimizer(cfg, field.parameters())
+    kw = dict(n_rays=64, n_batch=1, use_mask=False, generator=g, geo=ds.geo,
+              near=ds.near, far=ds.far)
+    return (ds.arrays(), field, T.make_epoch_fn(cfg, field, opt, 10, **kw),
+            T.make_train_step(cfg, field, opt, **kw), opt)
+
+
+@pytest.mark.parametrize("path", sorted(_GRAPH_PATHS))
+def test_graphed_steps_equal_eager_steps(dev, path):
+    """One eager step, a capture and 4 replays of the epoch function: the
+    replays make no host sync (``set_sync_debug_mode("error")``), every
+    kernel of the path launched once a step by the replay-aware counts,
+    and the losses and parameters ``torch.equal`` to 5 eager steps of
+    ``make_train_step`` from the same seed."""
+    from neuralvolumetricreconstructionformedicalimages_torch.train.optim import set_lr
+
+    enc, needs = _GRAPH_PATHS[path]
+    order = torch.arange(5, device=dev)[:, None]
+    arrays, field, epoch_fn, _, _ = _epoch_parts(dev, enc)
+    _build.reset_launches()
+    first = epoch_fn(arrays, order[:1], 0)           # the eager step and the capture
+    graph = epoch_fn.graphed.graph
+    assert graph is not None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rest = epoch_fn(arrays, order[1:], 1)         # replays only
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert epoch_fn.graphed.graph is graph            # kept, not captured again
+    launches = dict(_build.LAUNCHES)
+    for kname, every_step in needs.items():
+        assert launches.get(kname, 0) == (5 if every_step else 0), (kname, launches)
+    graphed = torch.cat([first, rest])
+
+    arrays, field_e, _, step, opt = _epoch_parts(dev, enc)
+    set_lr(opt, 1e-2)
+    eager = torch.stack([step(arrays, order[i]) for i in range(5)])
+    assert torch.equal(graphed, eager), (graphed, eager)
+    for a, b in zip(field.parameters(), field_e.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_graphed_trainer_resumes_from_checkpoint(dev, tmp_path, monkeypatch):
+    """The trainer on the card checkpoints Adam's device step and rate with
+    its graphed epochs; a second trainer resumed from the checkpoint
+    (eager step, capture, replays) takes the next epoch's steps
+    ``torch.equal`` to the first trainer's replays."""
+    import functools
+
+    from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.logging import (
+        ExperimentLogger)
+
+    monkeypatch.setattr(T, "ExperimentLogger",
+                        functools.partial(ExperimentLogger, enable_tensorboard=False))
+    cfg = _small_cfg(n_batch=2)
+    cfg["log"]["i_save"] = 1
+    a = T.Trainer(cfg, workdir=str(tmp_path), device=dev)
+    a.start()                                   # epochs 0 and 1; saves epoch 1
+    assert a.optimizer.param_groups[0]["capturable"]
+    assert all(st["step"].is_cuda for st in a.optimizer.state.values())
+    cfg["train"]["resume"] = True
+    b = T.Trainer(cfg, workdir=str(tmp_path), device=dev)
+    assert b.epoch_start == 2 and b.global_step == a.global_step
+    order = torch.as_tensor(a._view_order(2), device=dev)
+    la, lb = a.train_steps(order), b.train_steps(order)
+    assert torch.equal(la, lb), (la, lb)
+    for p, q in zip(a._parameters(), b._parameters()):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("plain_on", ["cuda", "cpu"])
+def test_capturable_adam_matches_plain_adam(dev, plain_on):
+    """``make_optimizer``'s Adam on the card (capturable, the rate a device
+    tensor filled by ``set_lr``) against a plain float-rate Adam -- the one
+    the CPU tests hold against JAX's optax Adam -- on the same parameters
+    and gradients, over 3 steps whose last one runs at a tenth of the rate.
+    After step k the parameters agree to k * 1e-3 * lr where every
+    gradient is well above eps (100 eps), and to k * 2 * lr elsewhere
+    (``tests/test_torch_train.py``'s one-step tolerances, summed over the
+    steps)."""
+    from neuralvolumetricreconstructionformedicalimages_torch.train.optim import (
+        make_optimizer, set_lr)
+
+    lr, eps = 1e-2, 1e-8
+    cfg = {"train": {"lrate": lr}}
+    rng = np.random.default_rng(0)
+    shapes = [(3, 1 << 12, 2), (16, 16), (16,)]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[(rng.standard_normal(s) * 10.0 ** rng.integers(-9, 1, s)).astype(np.float32)
+              for s in shapes] for _ in range(3)]
+    ours = [torch.nn.Parameter(torch.from_numpy(x).to(dev)) for x in init]
+    ref = [torch.nn.Parameter(torch.from_numpy(x).to(plain_on)) for x in init]
+    opt = make_optimizer(cfg, ours)
+    assert opt.param_groups[0]["capturable"]
+    assert isinstance(opt.param_groups[0]["lr"], torch.Tensor)
+    plain = torch.optim.Adam(ref, lr=lr, betas=(0.9, 0.999), eps=eps)
+    big = [np.ones(s, bool) for s in shapes]
+    for k, (g_k, rate) in enumerate(zip(grads, (lr, lr, lr / 10)), start=1):
+        set_lr(opt, rate)
+        set_lr(plain, rate)
+        for p, q, g in zip(ours, ref, g_k):
+            p.grad = torch.from_numpy(g).to(dev)
+            q.grad = torch.from_numpy(g).to(plain_on)
+        opt.step()
+        plain.step()
+        big = [b & (np.abs(g) > 100 * eps) for b, g in zip(big, g_k)]
+        for p, q, b in zip(ours, ref, big):
+            diff = (p.detach().cpu() - q.detach().cpu()).abs().numpy()
+            assert diff[b].max(initial=0.0) <= k * 1e-3 * lr, (k, diff[b].max())
+            assert diff.max() <= k * 2 * lr, (k, diff.max())
+
+
+def test_force_mesh_matches_plain_trainer_on_card(dev, tmp_path, monkeypatch):
+    """A mesh of one (a one-rank NCCL group) and the plain trainer, both
+    eager, at two views a step: the same losses and parameters, bit for
+    bit, over 6 steps.  Both steps draw their pixels with one
+    ``gather_batch`` draw of [n_batch, n_rays], which on the card is not
+    the per-view draws of ``gather_view_batch``."""
+    import functools
+
+    import _parallel_ranks as R
+    import torch.distributed as dist
+
+    from neuralvolumetricreconstructionformedicalimages_torch.parallel import mesh as tmesh
+    from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.logging import (
+        ExperimentLogger)
+
+    monkeypatch.setattr(T, "ExperimentLogger",
+                        functools.partial(ExperimentLogger, enable_tensorboard=False))
+    monkeypatch.setattr(tmesh, "DEFAULT_TIMEOUT_S", R.GROUP_TIMEOUT_S)
+    assert not dist.is_initialized()
+    runs = R.force_mesh_runs(tmp_path, dev, n_batch=2)
+    assert not dist.is_initialized()
+    assert torch.equal(runs["mesh"][0], runs["plain"][0]), runs
+    for a, b in zip(runs["mesh"][1].parameters(), runs["plain"][1].parameters()):
+        assert torch.equal(a, b)

@@ -38,30 +38,29 @@ def two_ranks(tmp_path_factory):
     return workdir, [o["job_trainer"] for o in out]
 
 
+def _check_force_mesh(tmp_path, monkeypatch, n_batch):
+    monkeypatch.setattr(tmesh, "DEFAULT_TIMEOUT_S", R.GROUP_TIMEOUT_S)
+    assert not dist.is_initialized()
+    runs = R.force_mesh_runs(tmp_path, "cpu", n_batch)
+    assert not dist.is_initialized()
+    assert runs["mesh"][0].shape == (6,)
+    assert torch.equal(runs["mesh"][0], runs["plain"][0])
+    for a, b in zip(runs["mesh"][1].parameters(), runs["plain"][1].parameters()):
+        assert torch.equal(a, b)
+
+
 def test_force_mesh_matches_plain_trainer(tmp_path, no_tensorboard, monkeypatch):
     """A mesh of one through the sharded step, on a one-rank gloo group the
     trainer makes and closes: the same losses and parameters, bit for bit,
     as the plain trainer over 6 steps."""
-    monkeypatch.setattr(tmesh, "DEFAULT_TIMEOUT_S", R.GROUP_TIMEOUT_S)
-    assert not dist.is_initialized()
-    runs = {}
-    for name, par in (("plain", {}),
-                      ("mesh", {"mesh": {"data": 1, "sample": 1}, "force_mesh": True})):
-        cfg = R.smoke_cfg(str(tmp_path / name), **par)
-        cfg["log"].update(i_eval=0, i_save=0)
-        tr = ttrainer.Trainer(cfg, workdir=str(tmp_path / name), device="cpu")
-        try:
-            assert (tr.mesh is not None) == (name == "mesh")
-            assert dist.is_initialized() == (name == "mesh")
-            runs[name] = (torch.stack([tr.train_step(v) for v in tr._view_order(0)[:6]]),
-                          tr)
-        finally:
-            tr.close()
-    assert not dist.is_initialized()
-    assert runs["mesh"][0].shape == (6,)
-    assert torch.equal(runs["mesh"][0], runs["plain"][0])
-    for a, b in zip(runs["mesh"][1].field.parameters(), runs["plain"][1].field.parameters()):
-        assert torch.equal(a, b)
+    _check_force_mesh(tmp_path, monkeypatch, 1)
+
+
+def test_force_mesh_matches_plain_trainer_two_views(tmp_path, no_tensorboard,
+                                                    monkeypatch):
+    """As above at two views a step: both steps gather their batch with
+    ``gather_batch``, so a mesh of one draws what the plain trainer draws."""
+    _check_force_mesh(tmp_path, monkeypatch, 2)
 
 
 def test_mesh_without_its_processes_raises(tmp_path):
