@@ -20,7 +20,10 @@ Run from the root of a checkout, with no arguments:
    computes the same function) that call with ``utils/profiling.py::
    time_fn`` (CUDA events around each call; the median), beside the
    least time the card could take (bytes over 3.35 TB/s, or f32
-   operations over 67 TFLOP/s, whichever is larger); the kernel and the
+   operations over 67 TFLOP/s, whichever is larger; beside the span
+   gather's rolled-mode bound it prints the 32-byte sectors of its rolled
+   rows that hold a key's column, since a key's values lie in 16 rows S
+   apart); the kernel and the
    library call also on the device (``utils/profiling.py::device_times``:
    ``torch.profiler`` sums of every kernel and memset of a call, and 200
    calls between one event pair), since the events around one call
@@ -42,12 +45,15 @@ Run from the root of a checkout, with no arguments:
    step, or the phase fails), and one more epoch of each, timed by events
    and one traced, gives the graphed and the eager median step, device ms
    a step, idle share and peak memory;
-5. prints the data side's results and the kernels, one JSON line each,
-   then, as the last line, ``{"ok": true, "device": {...}}``.
+5. prints the data side's, the parallel layer's and the configuration
+   classes' results and the kernels, one JSON line each, then the card's
+   name and power limit and, as the last line,
+   ``{"ok": true, "device": {...}}``.
 
 Phases of the other encoder paths, on the same inputs (before 4, while
-the main-path inputs are alive, and after it), and of the data side
-(after 4, before c):
+the main-path inputs are alive, and after it), of the data side and the
+parallel layer (after 4, before c) and of the configuration classes
+(last):
 
 a. the kernels in the modes the other paths run: the bucket with a bf16
    output (bit-equal: one rounding of the same f32 sums), the unroll on that bf16
@@ -110,7 +116,36 @@ f. the parallel layer (``parallel/``) on the card, after e:
    each rank must launch the three main-path kernels in every step, hold
    the same parameters as the other (a checksum) and read a finite,
    falling loss.  Gloo stages every all-reduce through the host, so f2's
-   and f3's times are not those of NCCL across cards.
+   and f3's times are not those of NCCL across cards;
+g. the configuration classes of ``scripts/config_matrix_*_torch.py`` and
+   the chest datasets, after d: ``configs/chest_50.yaml`` at full width
+   (1024 rays a step) through ``Trainer.train_steps``, 20 graphed steps a
+   path, each driven with the launch counts set to 0 just before and read
+   just after:
+   g1. abdomen: 576 samples a ray on ``data/abdomen_smooth.pickle``; then
+       the span gather's table mode, the bucket and the unroll held against
+       their plain versions as in 2-4 on one batch of it (589,824 sorted
+       points a level), under the modes ``table_abdomen`` and ``abdomen``;
+   g2. foot: 320 samples, a tanh head, on ``data/foot_smooth.pickle``; its
+       20 losses ``torch.equal`` to 20 eager ``train_step`` steps of a
+       second trainer from the same seed;
+   g3. jaw: 320 samples, no head activation, on ``data/jaw_smooth.pickle``,
+       whose 2-D ``full_proj`` gives the beam mask (``use_mask`` true), and
+       one eval;
+   g4. ``configs/chest_phantom_tvd.yaml`` (the TV-D term under capture),
+       ``torch.equal`` to its eager loop as g2;
+   g5. ``data/chest_phantom_smooth.pickle`` and
+       ``data/chest_phantom_views{100,200}.pickle`` made on the card by
+       ``scripts/make_smooth_phantom_torch.py`` and
+       ``scripts/make_view_sweep_data_torch.py``, the stored 50 views
+       reprojected and held to e1's rule, then
+       ``configs/chest_phantom_views200_b01.yaml``;
+   each path must launch the table mode, the bucket and the unroll exactly
+   once a step and the roll build and the rolled mode never, by the
+   replay-aware counts and by a profiler trace of its steps, with a
+   finite, falling loss; its median step ms, device ms a step and peak
+   memory print on a line of its own, and a ``configs`` JSON line before
+   the kernels line.
 
 The bucket is the tile design of ``csrc/bucket_matmul.cu`` (one block per
 1024-column tile with two searches per tile, slice blocks for runs of
@@ -171,14 +206,15 @@ PATHS = {
 # and the real-scan path's size.
 LAMINO_SCAN = "configs/scans/lamino_chip.yaml"
 REAL_VIEWS, REAL_DET, REAL_SAMPLES, REAL_RAYS = 187, 1024, 320, 4096
-# e1: the stored chest views that today's JAX projector misses, and at how
-# many pixels in all
-E1_VIEWS_OFF, E1_PIXELS_OFF = {16, 34}, 24
 # e3: the kernels-line entries of the main path's kernels at the real-scan
 # shapes, by launch count key
 REAL_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_real_scan]",
               "bucket_grad_matmul": "bucket_grad_matmul[real_scan]",
               "unroll_reduce_fm": "unroll_reduce_fm[real_scan]"}
+# Phase (g): the same at the abdomen envelope's shapes (576 samples a ray)
+ABDOMEN_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_abdomen]",
+                 "bucket_grad_matmul": "bucket_grad_matmul[abdomen]",
+                 "unroll_reduce_fm": "unroll_reduce_fm[abdomen]"}
 
 
 def check_launches(where: str, launches, steps: int, needs=MAIN_NEEDS) -> None:
@@ -314,6 +350,30 @@ def index_add_call(sk, sf, grads, table_size: int):
                                device=sk.device).index_add_(0, flat, pay)
 
 
+def stream_counts(spec, sk):
+    """What the span gather must read for the sorted keys ``sk`` [L, B]:
+    the distinct keys, the canonical rows that some corner of some key
+    touches, and the 32-byte sectors each mode must fetch at least once --
+    of every rolled row (bf16, 16 columns a sector), those that hold a
+    key's column; of the canonical table, those that hold a touched row.
+    Each summed over the levels."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
+        corner_offsets)
+    S, C = spec.table_size, spec.level_dim
+    offs = torch.as_tensor(corner_offsets(spec), device=sk.device).long()
+    distinct = touched = sec_rolled = sec_table = 0
+    for l in range(spec.num_levels):
+        uk = torch.unique_consecutive(sk[l]).long()
+        rows = torch.unique((uk[:, None] + offs[l][None, :]) % S)
+        distinct += int(uk.numel())
+        touched += int(rows.numel())
+        sec_rolled += int(torch.unique_consecutive(uk // 16).numel())
+        sec_table += int(torch.unique_consecutive(rows // (32 // (C * 4))).numel())
+    return distinct, touched, sec_rolled, sec_table
+
+
 def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
                       plain_iters: int = 20) -> None:
     """The kernels of a training path's step on one batch's sorted stream
@@ -330,8 +390,6 @@ def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
     from neuralvolumetricreconstructionformedicalimages_torch.ops import (
         roll_kernels as rk)
     from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
-    from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
-        corner_offsets)
     L, S, C = spec.num_levels, spec.table_size, spec.level_dim
     D, K = spec.input_dim, 1 << spec.input_dim
     F, E, B = K * C, rk._PAD, sk.shape[1]
@@ -354,18 +412,8 @@ def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
     del out, rolled, plain
     # bound: keys, packed fracs and output, and the canonical rows that some
     # corner of some key touches, each read once.  Beside it, the 32-byte
-    # sectors each mode must fetch at least once: of every rolled row, the
-    # sectors that hold a key's column; of the canonical table, those that
-    # hold a touched row.
-    offs = torch.as_tensor(corner_offsets(spec), device=sk.device).long()
-    distinct = touched = sec_rolled = sec_table = 0
-    for l in range(L):
-        uk = torch.unique_consecutive(sk[l]).long()
-        rows = torch.unique((uk[:, None] + offs[l][None, :]) % S)
-        distinct += int(uk.numel())
-        touched += int(rows.numel())
-        sec_rolled += int(torch.unique_consecutive(uk // 16).numel())   # bf16 columns
-        sec_table += int(torch.unique_consecutive(rows // (32 // (C * 4))).numel())
+    # sectors each mode must fetch at least once.
+    distinct, touched, sec_rolled, sec_table = stream_counts(spec, sk)
     print(f"span_gather_sorted[{span_mode}]: {B} points a level, {distinct} distinct "
           f"keys, {touched} canonical rows touched (of {L * S}); 32-byte sectors to "
           f"fetch: rolled table {sec_rolled * F * 32 / 1e6:.1f} MB ({F} rows), "
@@ -456,36 +504,25 @@ def project_chest(dev) -> dict:
     # so at 24 pixels, all in views 16 and 34, by up to 5.81e-4 (tests/
     # test_torch_data_gen.py::test_stored_chest_views_against_both_projectors),
     # so pixels over 1e-6 may lie only in those views, no more than 24 of
-    # them, each within one such sample.
+    # them, each within one such sample (make_view_sweep_data_torch.
+    # check_reprojection).
+    import make_view_sweep_data_torch as sweep
+
     chest = load_pickle("data/chest_phantom.pickle")
     geo = G.ConeGeometry.from_dict(chest)
     angles = np.asarray(chest["train"]["angles"], np.float32)
     vol = torch.as_tensor(chest["image"], dtype=torch.float32, device=dev)
     project_angles(vol, geo, angles[:1])                       # warm-up
     proj, wall = timed(lambda: project_angles(vol, geo, angles))
-    stored = chest["train"]["projections"]
-    err = np.abs(proj.cpu().numpy() - stored)
-    top = float(np.abs(stored).max())
-    near, far = G.get_near_far(geo)
-    n_samples = 2 * max(geo.nVoxel)
-    d_max = float(G.rays_for_angle(geo, 0.0, dev)[1].norm(dim=-1).max())
-    one_sample = float(chest["image"].max()) * (far - near) / (n_samples - 1) * d_max
-    over = err > 1e-6
-    views_over = sorted(int(v) for v in np.nonzero(over.any(axis=(1, 2)))[0])
+    res = sweep.check_reprojection(chest, proj.cpu().numpy())
     print(f"e1 projector: {len(angles)} chest views of {geo.nDetector} from "
-          f"{geo.nVoxel} x {n_samples} samples in {wall:.3f} s "
+          f"{geo.nVoxel} x {res['samples']} samples in {wall:.3f} s "
           f"({len(angles) / wall:.1f} views/s); against the stored projections "
-          f"(max {top:.4g}): max abs err {err.max():.4g}, {int(over.sum())} of "
-          f"{err.size} pixels over 1e-6 (views {views_over}), one boundary "
-          f"sample {one_sample:.4g}")
-    if not (set(views_over) <= E1_VIEWS_OFF and over.sum() <= E1_PIXELS_OFF
-            and err.max() <= one_sample + 1e-6):
-        raise AssertionError("projector: the chest views differ from the stored ones")
-    return dict(
-        views=len(angles), detector=list(geo.nDetector), volume=list(geo.nVoxel),
-        samples=n_samples, max_abs_err=float(err.max()), max_value=top,
-        pixels_over_1e6=int(over.sum()), views_over_1e6=views_over,
-        one_sample_bound=one_sample, wall_s=wall, views_per_s=len(angles) / wall)
+          f"(max {res['max_value']:.4g}): max abs err {res['max_abs_err']:.4g}, "
+          f"{res['pixels_over_1e6']} of {res['pixels']} pixels over 1e-6 (views "
+          f"{res['views_over_1e6']}), one boundary sample {res['one_sample_bound']:.4g}")
+    return dict(views=len(angles), detector=list(geo.nDetector), volume=list(geo.nVoxel),
+                wall_s=wall, views_per_s=len(angles) / wall, **res)
 
 
 def lamino_chip(dev, entry_of) -> dict:
@@ -567,10 +604,7 @@ def real_scan(dev, record, entry_of) -> dict:
         get_phantom)
     from neuralvolumetricreconstructionformedicalimages_torch.data.projector import (
         project_angles)
-    from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
     from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
-    from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
-        StepTimer)
 
     # e3. the real-scan laminography path: the 187 real angles, a smoothed
     # chip phantom projected on the card at 1024^2, a unit-amplitude complex
@@ -640,17 +674,9 @@ def real_scan(dev, record, entry_of) -> dict:
     if tr.train_dset.ray_mode != "onthefly" or not tr.use_mask:
         raise AssertionError(f"real scan: ray_mode {tr.train_dset.ray_mode}, "
                              f"use_mask {tr.use_mask}")
-    views = tr._view_order(0)[:TRAIN_STEPS]
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    timer = StepTimer(dev)
-    timer.tick()
-    rlosses, _, trace_counts = traced(lambda: tr.train_steps(views, timer).cpu().numpy())
-    launches = dict(_build.LAUNCHES)
-    check_exact("real scan", launches, TRAIN_STEPS)
-    check_exact("real scan (profiler trace)", trace_counts, TRAIN_STEPS)
-    first, last = falling("real scan", rlosses, 5)
-    step_ms = float(np.median(timer.step_ms()))
+    r = graphed_steps(tr, "real scan")
+    launches, trace_counts, step_ms = r["launches"], r["trace_counts"], r["median_step_ms"]
+    first, last = r["loss_first5"], r["loss_last5"]
     ev, eval_s = timed(lambda: tr.eval_step(tr.global_step, 0))
     if not np.isfinite(list(ev.values())).all():
         raise AssertionError(f"real scan: eval metrics not finite: {ev}")
@@ -659,12 +685,12 @@ def real_scan(dev, record, entry_of) -> dict:
         views_per_s=REAL_VIEWS / gen_s, format_s=format_s, mask_s=mask_s,
         pools_s=pools_s, native=native.available(), dataset_s=load_s,
         ray_mode=tr.train_dset.ray_mode, use_mask=tr.use_mask, n_rays=REAL_RAYS,
-        steps=len(rlosses), median_step_ms=step_ms,
+        steps=r["steps"], median_step_ms=step_ms,
         rays_per_s=REAL_RAYS / (step_ms / 1e3), loss_first5=first, loss_last5=last,
         eval=ev, eval_s=eval_s, launches=launches, trace_counts=trace_counts)
     print(f"e3 real scan: trainer with its in-memory datasets in {load_s:.2f} s; "
           f"ray_mode {tr.train_dset.ray_mode}, use_mask {tr.use_mask}; "
-          f"{len(rlosses)} steps of {REAL_RAYS} rays (under the profiler), median "
+          f"{r['steps']} steps of {REAL_RAYS} rays (under the profiler), median "
           f"{step_ms:.3f} ms, {REAL_RAYS / (step_ms / 1e3):.0f} rays/s, loss first-5 "
           f"{first:.6g} last-5 {last:.6g}, launches {launches}, kernels in the trace "
           f"{trace_counts}")
@@ -679,8 +705,8 @@ def real_scan(dev, record, entry_of) -> dict:
     # path's), held against their plain versions as phases 2-4 hold them
     g = torch.Generator(device=dev).manual_seed(1)
     ds = tr.train_dset
-    rays = gather_view_batch(tr._arrays, int(views[0][0]), REAL_RAYS, g, geo=ds.geo,
-                             near=ds.near, far=ds.far)["rays"]
+    rays = gather_view_batch(tr._arrays, int(tr._view_order(0)[0][0]), REAL_RAYS, g,
+                             geo=ds.geo, near=ds.near, far=ds.far)["rays"]
     spec = tr.field.encoder.grid
     sk, spf = sorted_stream(spec, encoder_points(
         tr.field, rays, int(cfg["render"]["n_samples"]), g))
@@ -696,6 +722,191 @@ def real_scan(dev, record, entry_of) -> dict:
         entry_of(mode_key)["launches"] = int(launches.get(key, 0))
     return res
 
+
+
+def graphed_steps(tr, where: str, steps: int = TRAIN_STEPS, needs=MAIN_NEEDS) -> dict:
+    """``steps`` steps of ``tr`` through ``Trainer.train_steps`` (the
+    graphed epoch function) under the profiler, with the launch counts set
+    to 0 just before and read just after; fails unless the kernels of
+    ``needs`` launched exactly as it says by the counts and by the trace,
+    and the loss is finite and falling.  Returns the losses (a CPU tensor),
+    the median step ms, the device ms a step and the counts."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
+        StepTimer)
+    views = tr._view_order(0)[:steps]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    timer = StepTimer(tr.device)
+    timer.tick()
+    losses, dev_ms, trace_counts = traced(lambda: tr.train_steps(views, timer).cpu())
+    launches = dict(_build.LAUNCHES)
+    check_exact(where, launches, steps, needs)
+    check_exact(f"{where} (profiler trace)", trace_counts, steps, needs)
+    first, last = falling(where, losses.numpy(), 5)
+    return dict(steps=steps, losses=losses, median_step_ms=float(np.median(timer.step_ms())),
+                device_ms=dev_ms / steps, loss_first5=first, loss_last5=last,
+                launches=launches, trace_counts=trace_counts)
+
+
+def config_classes(dev, record, entry_of, smi: str) -> dict:
+    """Phase (g): the configuration classes of the config-matrix scripts
+    and of the chest datasets on the chest_50 model at full width; returns
+    the ``configs`` JSON line's object."""
+    import torch
+
+    import config_matrix_converge_torch as converge
+    import config_matrix_smoke_torch as smoke
+    from neuralvolumetricreconstructionformedicalimages_torch.config import load_config
+    from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
+        gather_view_batch, load_pickle)
+    from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import Trainer
+
+    def trainer(name, cfg, i_eval=0):
+        cfg["train"]["resume"] = False
+        cfg["log"].update(i_eval=i_eval, i_save=0)
+        return Trainer(cfg, workdir=os.path.join("logs", f"chip_smoke_{name}"), device=dev)
+
+    def variant(name):
+        return smoke.variant_cfg(converge.VARIANTS[name], f"chip_smoke_{name}",
+                                 converge.data_path(name))
+
+    def run(where, name, cfg, eager_too=False, i_eval=0):
+        """``where``'s 20 graphed steps (and, with ``eager_too``, 20 eager
+        ``train_step`` steps of a second trainer from the same seed, whose
+        losses must be ``torch.equal``); peak memory from the trainer's
+        creation on.  Returns the figures and the graphed trainer."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = trainer(name, cfg, i_eval)
+        res = graphed_steps(tr, where)
+        res["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        n_rays = tr.n_rays * tr.n_batch
+        res.update(n_rays=n_rays, n_samples=int(tr.cfg["render"]["n_samples"]),
+                   rays_per_s=n_rays / (res["median_step_ms"] / 1e3))
+        if eager_too:
+            eager = trainer(f"{name}_eager", cfg)
+            views = torch.as_tensor(eager._view_order(0)[:TRAIN_STEPS], device=dev)
+            eager_losses = torch.stack([eager.train_step(v) for v in views]).cpu()
+            del eager
+            if not torch.equal(eager_losses, res["losses"]):
+                raise AssertionError(f"{where}: the eager loop's losses differ from the "
+                                     f"graphed steps': {eager_losses.tolist()} vs "
+                                     f"{res['losses'].tolist()}")
+            res["eager_losses_equal"] = True
+        for kname in MAIN_NEEDS:
+            entry_of(kname).setdefault("path_launches", {})[name] = \
+                int(res["launches"].get(kname, 0))
+        print(f"{where} ({smi}): {res['steps']} graphed steps of {n_rays} rays x "
+              f"{res['n_samples']} samples (under the profiler), median "
+              f"{res['median_step_ms']:.3f} ms, device {res['device_ms']:.3f} ms a "
+              f"step, peak memory {res['peak_mb']:.1f} MB, {res['rays_per_s']:.0f} "
+              f"rays/s, loss first-5 {res['loss_first5']:.6g} last-5 "
+              f"{res['loss_last5']:.6g}"
+              + (", 20 eager steps torch.equal" if eager_too else ""))
+        print(f"{where}: launches {res['launches']}, kernels in the trace "
+              f"{res['trace_counts']}")
+        res["losses"] = res["losses"].tolist()
+        return res, tr
+
+    out = {}
+    # g1. abdomen: 576 samples a ray, 589,824 points a level
+    res, tr = run("g1 abdomen", "abdomen", variant("abdomen"))
+    # the main path's kernels on one batch of this path, held against
+    # their plain versions as phases 2-4 hold them
+    g = torch.Generator(device=dev).manual_seed(1)
+    rays = gather_view_batch(tr._arrays, 0, tr.n_rays, g)["rays"]
+    spec = tr.field.encoder.grid
+    sk, spf = sorted_stream(spec, encoder_points(tr.field, rays, res["n_samples"], g))
+    del tr, rays
+    torch.cuda.empty_cache()
+    table = torch.randn((spec.num_levels, spec.table_size, spec.level_dim),
+                        generator=g, device=dev)
+    grads = torch.randn((spec.num_levels, spec.level_dim, sk.shape[1]),
+                        generator=g, device=dev)
+    hold_path_kernels(record, spec, sk, spf, table, grads, "table_abdomen", "abdomen",
+                      plain_iters=3)
+    for key, mode_key in ABDOMEN_MODES.items():
+        entry_of(mode_key)["launches"] = int(res["launches"].get(key, 0))
+    res["points_a_level"] = int(sk.shape[1])
+    out["abdomen"] = res
+    del sk, spf, table, grads
+    torch.cuda.empty_cache()
+
+    # g2. foot: a tanh head, graphed against eager
+    out["foot"], tr = run("g2 foot", "foot", variant("foot"), eager_too=True)
+    del tr
+    torch.cuda.empty_cache()
+
+    # g3. jaw: no head activation, the beam mask from a 2-D full_proj, one eval
+    full_proj = load_pickle(converge.data_path("jaw")).get("full_proj")
+    if full_proj is None or np.ndim(full_proj) != 2:
+        raise AssertionError("g3 jaw: the scan has no 2-D full_proj")
+    res, tr = run("g3 jaw", "jaw", variant("jaw"), i_eval=1)
+    if not tr.use_mask:
+        raise AssertionError("g3 jaw: the trainer found no beam mask")
+    ev, eval_s = timed(lambda: tr.eval_step(tr.global_step, 0))
+    if not np.isfinite(list(ev.values())).all():
+        raise AssertionError(f"g3 jaw: eval metrics not finite: {ev}")
+    res.update(use_mask=True, mask_kept=float(tr.train_dset.mask.float().mean()),
+               eval=ev, eval_s=eval_s)
+    print(f"g3 jaw: use_mask True ({res['mask_kept']:.4f} of the pixels kept), eval "
+          f"({eval_s:.2f} s): " + ", ".join(f"{k} {v:.4g}" for k, v in ev.items()))
+    out["jaw"] = res
+    del tr
+    torch.cuda.empty_cache()
+
+    # g4. the TV-D term under capture, graphed against eager
+    out["tvd"], tr = run("g4 tvd", "tvd", load_config("configs/chest_phantom_tvd.yaml"),
+                         eager_too=True)
+    del tr
+    torch.cuda.empty_cache()
+
+    # g5. the chest datasets made on the card, then views200_b01
+    out["chest_datasets"] = chest_datasets(dev)
+    cfg = load_config("configs/chest_phantom_views200_b01.yaml")
+    res, tr = run("g5 views200_b01", "views200_b01", cfg)
+    if tr.train_dset.n_views != 200:
+        raise AssertionError(f"g5: views200_b01 trains on {tr.train_dset.n_views} views")
+    res["n_views"] = 200
+    out["views200_b01"] = res
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def chest_datasets(dev) -> dict:
+    """g5: ``data/chest_phantom_smooth.pickle`` and
+    ``data/chest_phantom_views{100,200}.pickle`` made on the card by the
+    port's scripts, and the stored 50 views reprojected and held to the
+    view sweep's rule."""
+    import make_smooth_phantom_torch as smooth
+    import make_view_sweep_data_torch as sweep
+    from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
+        load_pickle)
+    from neuralvolumetricreconstructionformedicalimages_torch.data.generate import save
+
+    chest = load_pickle(sweep.SRC)
+    res = {}
+    data, wall = timed(lambda: smooth.smooth_phantom(chest, dev))
+    save(data, smooth.OUT)
+    res["smooth"] = dict(path=smooth.OUT, wall_s=wall,
+                         views=len(data["train"]["angles"]) + len(data["val"]["angles"]))
+    for n_views in sweep.VIEWS:
+        data, wall = timed(lambda: sweep.view_sweep(chest, n_views, dev))
+        save(data, sweep.out_path(n_views))
+        res[f"views{n_views}"] = dict(path=sweep.out_path(n_views), wall_s=wall,
+                                      views=n_views)
+    del data
+    proj, wall = timed(lambda: sweep.project_views(chest, chest["train"]["angles"], dev))
+    res["reprojection_check"] = dict(wall_s=wall, **sweep.check_reprojection(chest, proj))
+    print("g5 chest datasets: " + "; ".join(
+        f"{k} {v['views']} views in {v['wall_s']:.2f} s" for k, v in res.items()
+        if "views" in v) + f"; the stored 50 views reprojected: "
+          f"{res['reprojection_check']}")
+    return res
 
 
 
@@ -982,7 +1193,7 @@ def main() -> int:
     from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
         Trainer, build_model, pin_fp32)
     from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
-        StepTimer, device_times, time_fn)
+        device_times, time_fn)
     sys.path.insert(0, os.path.join(root, "scripts"))
     import microbench_encoder_torch as microbench
 
@@ -1090,12 +1301,23 @@ def main() -> int:
     err = (out - out_plain).abs().max()
     if not err <= 1e-5:
         raise AssertionError(f"span_gather_sorted differs by {float(err)}")
-    distinct = sum(int(torch.unique_consecutive(sk[l]).numel()) for l in range(L))
+    # bound: keys, packed fracs and output, and each distinct key's F bf16
+    # values, each read once.  Beside it, the 32-byte sectors of the rolled
+    # table that hold some key's column, in each of its F rows: a key's F
+    # values lie in F rows S columns apart, so the card fetches a whole
+    # sector of each, and that is what sets the mode's time.
+    distinct, _, sec_rolled, _ = stream_counts(spec, sk)
+    io = L * B * 4 * 2 + L * C * B * 4
+    n_ops = L * B * (K * D + 2 * K * C)
+    print(f"span_gather_sorted (rolled): bound {bound_ms(io + distinct * F * 2, n_ops)[0]:.4f} "
+          f"ms ({distinct} distinct keys x {F} x 2 bytes, {distinct * F * 2 / 1e6:.1f} MB); "
+          f"the 32-byte sectors that hold them take "
+          f"{bound_ms(io + sec_rolled * F * 32, n_ops)[0]:.4f} ms ({sec_rolled * F} "
+          f"sectors, {sec_rolled * F * 32 / 1e6:.1f} MB)")
     record("span_gather_sorted", err,
            lambda: sg.span_gather_sorted(sk, spf, R, input_dim=D),
            lambda: sg.span_gather_sorted_plain(sk, spf, R, input_dim=D), None,
-           L * B * 4 * 2 + distinct * F * 2 + L * C * B * 4,
-           L * B * (K * D + 2 * K * C))
+           io + distinct * F * 2, n_ops)
     del R, out, out_plain
 
     # ---- 2-4. the main path's kernels on its batch: the span gather's
@@ -1315,25 +1537,16 @@ def main() -> int:
         pcfg["log"]["i_save"] = 0      # no checkpoint
         tr = Trainer(pcfg, workdir=os.path.join("logs", f"chip_smoke_{pname}"),
                      device="cuda")
-        views = tr._view_order(0)[:TRAIN_STEPS]
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        timer = StepTimer(dev)
-        timer.tick()
-        plosses, _, ptrace = traced(lambda: tr.train_steps(views, timer).cpu().numpy())
-        pms = timer.step_ms()
-        plaunch = dict(_build.LAUNCHES)
-        check_exact(f"{pname} path", plaunch, TRAIN_STEPS, need)
-        check_exact(f"{pname} path (profiler trace)", ptrace, TRAIN_STEPS, need)
-        pf, pl = falling(f"{pname} path", plosses, 5)
-        pmed = float(np.median(pms))
-        paths[pname] = dict(encoder=enc_over, steps=len(plosses), median_step_ms=pmed,
-                            rays_per_s=n_rays / (pmed / 1e3), loss_first5=pf,
-                            loss_last5=pl, launches=plaunch, trace_counts=ptrace)
-        print(f"path {pname}: {len(plosses)} steps (under the profiler), median "
+        r = graphed_steps(tr, f"{pname} path", needs=need)
+        plaunch, pmed = r["launches"], r["median_step_ms"]
+        paths[pname] = dict(encoder=enc_over, steps=r["steps"], median_step_ms=pmed,
+                            rays_per_s=n_rays / (pmed / 1e3), loss_first5=r["loss_first5"],
+                            loss_last5=r["loss_last5"], launches=plaunch,
+                            trace_counts=r["trace_counts"])
+        print(f"path {pname}: {r['steps']} steps (under the profiler), median "
               f"{pmed:.3f} ms, {n_rays / (pmed / 1e3):.0f} rays/s, loss first-5 "
-              f"{pf:.6g} last-5 {pl:.6g}, launches {plaunch}, kernels in the trace "
-              f"{ptrace}")
+              f"{r['loss_first5']:.6g} last-5 {r['loss_last5']:.6g}, launches {plaunch}, "
+              f"kernels in the trace {r['trace_counts']}")
         for kname, mode in (("bucket_grad_matmul", {"xor": "xor_d0", "rolled": "bf16_out"}),
                             ("unroll_reduce_fm", {"rolled": "bf16_in"})):
             if pname in mode:
@@ -1344,6 +1557,10 @@ def main() -> int:
         del tr
         torch.cuda.empty_cache()
 
+    # ---- g. the configuration classes on the card ----
+    configs_line = config_classes(dev, record, entry_of, smi)
+    torch.cuda.empty_cache()
+
     line = []
     for r in results.values():
         for entry in (r, *r.get("modes", {}).values()):
@@ -1352,6 +1569,7 @@ def main() -> int:
         line.append(r)
     print(json.dumps({"data": data_line, "card": smi}))
     print(json.dumps({"parallel": parallel_line}))
+    print(json.dumps({"configs": configs_line, "card": smi}))
     print(json.dumps({"kernels": line, "train": {
         "config": cfg_path, "steps": steps, "median_step_ms": step_ms,
         "rays_per_s": n_rays / (step_ms / 1e3), "loss_first10": first,

@@ -618,12 +618,12 @@ _GRAPH_PATHS = {
 }
 
 
-def _small_cfg(encoder=None, n_batch=1):
+def _small_cfg(encoder=None, n_batch=1, overrides=None):
     """The main-path encoder at 3 levels x 2^14, 64 rays x 32 samples, on
-    the smoke scan."""
+    the smoke scan; ``overrides`` updates sections (``{"network": {...}}``)."""
     from neuralvolumetricreconstructionformedicalimages_torch.config import with_defaults
 
-    return with_defaults({
+    cfg = with_defaults({
         "exp": {"expname": "g", "expdir": ".", "datadir": _SMOKE},
         "network": {"net_type": "mlp", "num_layers": 4, "hidden_dim": 16,
                     "skips": [2], "out_dim": 1, "last_activation": "sigmoid",
@@ -637,9 +637,12 @@ def _small_cfg(encoder=None, n_batch=1):
         "train": {"epoch": 1, "n_batch": n_batch, "n_rays": 64, "lrate": 1e-2,
                   "lrate_gamma": 0.1, "lrate_step": 10, "resume": False},
         "log": {"i_eval": 0, "i_save": 0}})
+    for section, over in (overrides or {}).items():
+        cfg[section].update(over)
+    return cfg
 
 
-def _epoch_parts(dev, encoder, seed=0):
+def _epoch_parts(dev, encoder, seed=0, overrides=None):
     """A small field (:func:`_small_cfg`), its capturable optimizer and
     generator, and the epoch function and the eager step over them."""
     from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
@@ -648,7 +651,7 @@ def _epoch_parts(dev, encoder, seed=0):
     from neuralvolumetricreconstructionformedicalimages_torch.train.optim import (
         make_optimizer)
 
-    cfg = _small_cfg(encoder)
+    cfg = _small_cfg(encoder, overrides=overrides)
     T.pin_fp32()
     ds = load_dataset(_SMOKE, "train", 64, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -667,11 +670,31 @@ def test_graphed_steps_equal_eager_steps(dev, path):
     kernel of the path launched once a step by the replay-aware counts,
     and the losses and parameters ``torch.equal`` to 5 eager steps of
     ``make_train_step`` from the same seed."""
+    enc, needs = _GRAPH_PATHS[path]
+    _graphed_equals_eager(dev, enc, needs)
+
+
+# the heads and the loss of the config-matrix classes (foot: tanh, jaw:
+# none; configs/chest_phantom_tvd.yaml: the TV-D term) on the main path
+_HEADS_AND_LOSSES = {"tanh": {"network": {"last_activation": "tanh"}},
+                     "none": {"network": {"last_activation": "none"}},
+                     "tvd": {"train": {"loss": "mse+tvd:0.1"}}}
+
+
+@pytest.mark.parametrize("case", sorted(_HEADS_AND_LOSSES))
+def test_graphed_heads_and_tvd_equal_eager_steps(dev, case):
+    """A tanh head, no head activation and the ``mse+tvd:0.1`` loss under
+    capture: 5 graphed steps (one eager, a capture, 4 replays with no host
+    sync) ``torch.equal`` to 5 eager steps, the main path's kernels once a
+    step."""
+    _graphed_equals_eager(dev, {}, _GRAPH_PATHS["sorted"][1], _HEADS_AND_LOSSES[case])
+
+
+def _graphed_equals_eager(dev, enc, needs, overrides=None):
     from neuralvolumetricreconstructionformedicalimages_torch.train.optim import set_lr
 
-    enc, needs = _GRAPH_PATHS[path]
     order = torch.arange(5, device=dev)[:, None]
-    arrays, field, epoch_fn, _, _ = _epoch_parts(dev, enc)
+    arrays, field, epoch_fn, _, _ = _epoch_parts(dev, enc, overrides=overrides)
     _build.reset_launches()
     first = epoch_fn(arrays, order[:1], 0)           # the eager step and the capture
     graph = epoch_fn.graphed.graph
@@ -688,7 +711,7 @@ def test_graphed_steps_equal_eager_steps(dev, path):
         assert launches.get(kname, 0) == (5 if every_step else 0), (kname, launches)
     graphed = torch.cat([first, rest])
 
-    arrays, field_e, _, step, opt = _epoch_parts(dev, enc)
+    arrays, field_e, _, step, opt = _epoch_parts(dev, enc, overrides=overrides)
     set_lr(opt, 1e-2)
     eager = torch.stack([step(arrays, order[i]) for i in range(5)])
     assert torch.equal(graphed, eager), (graphed, eager)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of the PyTorch package, and not
-``chip_smoke.py``, imports JAX or the JAX package (checked with ``ast``,
-so an import inside a function counts too)."""
+"""The port stands alone: no module of the PyTorch package, no script of
+the port (``scripts/*_torch.py`` and ``scripts/profile_torch_step.py``)
+and not ``chip_smoke.py`` imports JAX or the JAX package (checked with
+``ast``, so an import inside a function counts too)."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "neuralvolumetricreconstructionformedicalimages_torch"
-FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+FILES = (sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py"))
+         + sorted(p.relative_to(REPO).as_posix() for p in (REPO / "scripts").glob("*torch*.py"))
+         + ["chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "neuralvolumetricreconstructionformedicalimages_tpu")
 
 
@@ -28,6 +31,8 @@ def _forbidden(names):
 
 def test_port_has_files():
     assert len(FILES) > 20 and "neuralvolumetricreconstructionformedicalimages_torch/data/projector.py" in FILES
+    assert {"scripts/config_matrix_converge_torch.py",
+            "scripts/profile_torch_step.py"} <= set(FILES)
 
 
 @pytest.mark.parametrize("rel", FILES)
