@@ -45,15 +45,16 @@ Run from the root of a checkout, with no arguments:
    step, or the phase fails), and one more epoch of each, timed by events
    and one traced, gives the graphed and the eager median step, device ms
    a step, idle share and peak memory;
-5. prints the data side's, the parallel layer's and the configuration
-   classes' results and the kernels, one JSON line each, then the card's
+5. prints the data side's, the parallel layer's, the configuration
+   classes' and the real scale's results and the kernels, one JSON line
+   each, then the card's
    name and power limit and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Phases of the other encoder paths, on the same inputs (before 4, while
 the main-path inputs are alive, and after it), of the data side and the
-parallel layer (after 4, before c) and of the configuration classes
-(last):
+parallel layer (after 4, before c), of the configuration classes, and of
+the real scan at scale and the batch sweep (last):
 
 a. the kernels in the modes the other paths run: the bucket with a bf16
    output (bit-equal: one rounding of the same f32 sums), the unroll on that bf16
@@ -87,8 +88,10 @@ e. the data side on the card, each path driven with the launch counts
    e3. the real-scan path: the 187 angles of ``data/angles_real.npy``,
        a smoothed chip phantom (256 x 256 x 64) projected on the card at
        1024^2 x 320 samples, a unit-amplitude complex field through
-       ``data/format_real.py``, beam masks and pools from the C++ host
-       engine (``native/``, timed inside the dataset build),
+       ``data/format_real.py`` (both by ``scripts/real_scale_train_r5_torch.py``),
+       beam masks and pools from the C++ host engine (``native/``); the
+       formatter, the trainer's construction (its train dataset, not the
+       val one) and the engine's calls are each timed where they run,
        ``configs/chest_50.yaml`` at 4096 rays with rays on the fly, 20
        masked steps through the graphed epoch function and one masked
        eval; then the span gather's table
@@ -146,6 +149,26 @@ g. the configuration classes of ``scripts/config_matrix_*_torch.py`` and
    finite, falling loss; its median step ms, device ms a step and peak
    memory print on a line of its own, and a ``configs`` JSON line before
    the kernels line.
+h. the real scan at scale and the batch sweep, after g, each driven with
+   the launch counts set to 0 just before it and read just after:
+   h1. ``scripts/real_scale_smoke_torch.py``'s path at full size: 187
+       random views of 1024^2 at the measured angles (rays on the fly,
+       unmasked), ``configs/chest_50.yaml`` at 1024 rays x 192 samples
+       through ``make_epoch_fn``, a warm-up epoch of 4 steps and 2 timed
+       ones; ms a step and peak memory;
+   h2. ``scripts/batch_sweep_torch.py --batches 1024,8192 --dtypes
+       bfloat16 --steps 8`` as a subprocess (each configuration in a
+       process of its own): every figure of its ``SWEEPREC`` lines finite,
+       each harness's kernels exactly once a step in its timed blocks;
+   h3. 4 graphed steps at 8,192 rays on the sweep's scan, then the span
+       gather's table mode, the bucket and the unroll held against their
+       plain versions as in 2-4 on one batch of it (1,572,864 sorted points
+       a level, the largest shape the kernels are held at), under the modes
+       ``table_batch8192`` and ``batch8192`` of the kernels line;
+   h1 and h3 must launch the table mode, the bucket and the unroll exactly
+   once a step and the roll build and the rolled mode never (the forward
+   is not chunked), by the replay-aware counts and by a profiler trace; a
+   ``real_scale`` JSON line before the kernels line.
 
 The bucket is the tile design of ``csrc/bucket_matmul.cu`` (one block per
 1024-column tile with two searches per tile, slice blocks for runs of
@@ -203,9 +226,9 @@ PATHS = {
 
 
 # Phase (e): the scan of the dataset configs/lamino_chip.yaml trains on,
-# and the real-scan path's size.
+# and the real-scan path's rays a step.
 LAMINO_SCAN = "configs/scans/lamino_chip.yaml"
-REAL_VIEWS, REAL_DET, REAL_SAMPLES, REAL_RAYS = 187, 1024, 320, 4096
+REAL_RAYS = 4096
 # e3: the kernels-line entries of the main path's kernels at the real-scan
 # shapes, by launch count key
 REAL_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_real_scan]",
@@ -215,6 +238,13 @@ REAL_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_real_scan]"
 ABDOMEN_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_abdomen]",
                  "bucket_grad_matmul": "bucket_grad_matmul[abdomen]",
                  "unroll_reduce_fm": "unroll_reduce_fm[abdomen]"}
+# Phase (h): the batch sweep's ray counts (one table dtype), the steps of
+# h3's 8,192-ray epoch, and the kernels-line entries at its shape
+SWEEP_ARGS = ["--batches", "1024,8192", "--dtypes", "bfloat16", "--steps", "8"]
+BATCH_RAYS, BATCH_STEPS = 8192, 4
+BATCH_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_batch8192]",
+               "bucket_grad_matmul": "bucket_grad_matmul[batch8192]",
+               "unroll_reduce_fm": "unroll_reduce_fm[batch8192]"}
 
 
 def check_launches(where: str, launches, steps: int, needs=MAIN_NEEDS) -> None:
@@ -262,24 +292,14 @@ def traced(run):
     actually ran."""
     import collections
 
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        out = run()
-        torch.cuda.synchronize()
-    dev_ms, counts = 0.0, collections.Counter()
-    for ev in prof.key_averages():
-        if getattr(ev, "is_user_annotation", False):
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            dev_ms += dev_us / 1e3
-            key = _launch_key(ev.key)
-            if key:
-                counts[key] += ev.count
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
+        traced_device_ms)
+    out, dev_ms, kernels = traced_device_ms(run)
+    counts = collections.Counter()
+    for name, (_, n) in kernels.items():
+        key = _launch_key(name)
+        if key:
+            counts[key] += n
     return out, dev_ms, dict(counts)
 
 
@@ -590,60 +610,39 @@ def real_scan(dev, record, entry_of) -> dict:
     """e3: the 187-view real-scan laminography path, and the main path's
     kernels at its shapes."""
     import torch
-    from scipy.ndimage import gaussian_filter
 
-    from neuralvolumetricreconstructionformedicalimages_torch import geometry as G
+    import real_scale_train_r5_torch as r5
     from neuralvolumetricreconstructionformedicalimages_torch import native
     from neuralvolumetricreconstructionformedicalimages_torch.config import (
         load_config, with_defaults)
+    from neuralvolumetricreconstructionformedicalimages_torch.data import format_real
     from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
-        gather_view_batch, make_dataset)
-    from neuralvolumetricreconstructionformedicalimages_torch.data.format_real import (
-        format_real_data)
-    from neuralvolumetricreconstructionformedicalimages_torch.data.phantoms import (
-        get_phantom)
-    from neuralvolumetricreconstructionformedicalimages_torch.data.projector import (
-        project_angles)
+        gather_view_batch)
     from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
 
     # e3. the real-scan laminography path: the 187 real angles, a smoothed
     # chip phantom projected on the card at 1024^2, a unit-amplitude complex
-    # field through the formatter, a beam mask from the C++ engine, rays on
-    # the fly, masked loss and masked eval
-    angles_deg = np.rad2deg(np.load("data/angles_real.npy").astype(np.float64))[:REAL_VIEWS]
-    vol = gaussian_filter(get_phantom("lamino_chip", (256, 256, 64)).astype(np.float32), 1.0)
-    rgeo = G.ConeGeometry(
-        DSD=1.5, DSO=1.0, nDetector=(REAL_DET, REAL_DET), dDetector=(0.001, 0.001),
-        nVoxel=(256, 256, 64), dVoxel=(0.0015, 0.0015, 0.0015),
-        mode="parallel", tilt_angle=29.0)
-    proj, gen_s = timed(lambda: project_angles(
-        vol, rgeo, np.deg2rad(angles_deg).astype(np.float32), REAL_SAMPLES, device=dev))
-    proj = proj.cpu().numpy()
-    H = W = REAL_DET
-    phase_max = 0.9 * float(proj.max()) / max(1e-6, float(vol.max()))
-    phase = proj / max(1e-6, proj.max()) * phase_max
-    yy, xx = np.mgrid[0:H, 0:W]
-    beam = (np.hypot(yy - H / 2, xx - W / 2) < 0.48 * H).astype(np.float32)
-    cplx = (beam * np.exp(1j * phase)).astype(np.complex64)
-    del proj, phase
-    t0 = time.perf_counter()
-    data = format_real_data(np.rot90(cplx, k=-1, axes=(1, 2)), angles_deg,
-                            tilt_angle=29.0, n_slices=64)
-    data.update(nVoxel=[256, 256, 64], dVoxel=[1.5, 1.5, 1.5], offOrigin=[0, 0, 0],
-                image=vol)
-    format_s = time.perf_counter() - t0
-    del cplx
+    # field through the formatter (scripts/real_scale_train_r5_torch.py's
+    # make_data), a beam mask from the C++ engine, rays on the fly, masked
+    # loss and masked eval
+    angles_deg = r5.real_angles_deg()
+    rgeo, vol = r5.gen_geo_vol()
+    proj, gen_s = timed(lambda: r5.project(vol, rgeo, angles_deg, dev))
+    H, W = r5.H, r5.W
     if not native.available():
         raise AssertionError(f"the C++ host engine did not build: {native.load_error()}")
     cfg = with_defaults(load_config("configs/chest_50.yaml"))
     cfg["exp"].update(expname="chip_smoke_real", datadir="(in-memory)")
     cfg["train"].update(resume=False, n_rays=REAL_RAYS)
     cfg["log"].update(i_eval=0, i_save=0, eval_mask=True)
-    # the datasets are built in memory, and the engine's calls that
-    # make_dataset makes are timed where they run
-    engine_s = {"ptycho_mask_batch": [], "build_pools": []}
+    # the formatter, the trainer (with its train dataset) and the engine's
+    # calls run inside make_data and in_memory_trainer, and each is timed
+    # where it runs: format_s is the formatter alone, dataset_s the
+    # trainer's construction without the val dataset built after it
+    engine_s = {"format_real_data": [], "Trainer": [], "ptycho_mask_batch": [],
+                "build_pools": []}
 
-    def timed_engine(fn):
+    def timed_call(fn):
         def call(*args, **kw):
             t0 = time.perf_counter()
             res = fn(*args, **kw)
@@ -651,22 +650,24 @@ def real_scan(dev, record, entry_of) -> dict:
             return res
         return call
 
-    saved = (T.load_dataset, native.ptycho_mask_batch, native.build_pools)
-    T.load_dataset = lambda path, split, n_rays, **kw: make_dataset(
-        data, split, n_rays=n_rays, **kw)
-    native.ptycho_mask_batch = timed_engine(saved[1])
-    native.build_pools = timed_engine(saved[2])
+    hooks = [(format_real, "format_real_data"), (T, "Trainer"),
+             (native, "ptycho_mask_batch"), (native, "build_pools")]
+    saved = [getattr(mod, name) for mod, name in hooks]
+    for (mod, name), fn in zip(hooks, saved):
+        setattr(mod, name, timed_call(fn))
     try:
-        tr, load_s = timed(lambda: T.Trainer(
-            cfg, workdir=os.path.join("logs", "chip_smoke_real"), device=dev))
-        tr.eval_dset = make_dataset(data, "val", n_rays=REAL_RAYS, device=dev)
+        data = r5.make_data(proj, vol, angles_deg)    # the phase and the field freed
+        del proj
+        tr = r5.in_memory_trainer(cfg, data, os.path.join("logs", "chip_smoke_real"), dev)
     finally:
-        T.load_dataset, native.ptycho_mask_batch, native.build_pools = saved
+        for (mod, name), fn in zip(hooks, saved):
+            setattr(mod, name, fn)
+    format_s, load_s = engine_s["format_real_data"][0], engine_s["Trainer"][0]
     # the train split's calls come first
     mask_s, pools_s = engine_s["ptycho_mask_batch"][0], engine_s["build_pools"][0]
     counts = tr.train_dset.pool_counts
-    print(f"e3 generate: {REAL_VIEWS} views of {REAL_DET}^2 x {REAL_SAMPLES} samples "
-          f"from (256, 256, 64) in {gen_s:.2f} s ({REAL_VIEWS / gen_s:.1f} views/s); "
+    print(f"e3 generate: {r5.N_VIEWS} views of {H}x{W} x {r5.GEN_SAMPLES} samples "
+          f"from {vol.shape} in {gen_s:.2f} s ({r5.N_VIEWS / gen_s:.1f} views/s); "
           f"format {format_s:.2f} s; C++ engine on the train split: masks "
           f"{mask_s:.3f} s ({float(tr.train_dset.mask.float().mean()):.4f} kept), "
           f"pools {pools_s:.3f} s ({int(counts.min())}-{int(counts.max())} valid "
@@ -681,14 +682,14 @@ def real_scan(dev, record, entry_of) -> dict:
     if not np.isfinite(list(ev.values())).all():
         raise AssertionError(f"real scan: eval metrics not finite: {ev}")
     res = dict(
-        views=REAL_VIEWS, detector=[H, W], samples=REAL_SAMPLES, generate_s=gen_s,
-        views_per_s=REAL_VIEWS / gen_s, format_s=format_s, mask_s=mask_s,
+        views=r5.N_VIEWS, detector=[H, W], samples=r5.GEN_SAMPLES, generate_s=gen_s,
+        views_per_s=r5.N_VIEWS / gen_s, format_s=format_s, mask_s=mask_s,
         pools_s=pools_s, native=native.available(), dataset_s=load_s,
         ray_mode=tr.train_dset.ray_mode, use_mask=tr.use_mask, n_rays=REAL_RAYS,
         steps=r["steps"], median_step_ms=step_ms,
         rays_per_s=REAL_RAYS / (step_ms / 1e3), loss_first5=first, loss_last5=last,
         eval=ev, eval_s=eval_s, launches=launches, trace_counts=trace_counts)
-    print(f"e3 real scan: trainer with its in-memory datasets in {load_s:.2f} s; "
+    print(f"e3 real scan: trainer with its in-memory train dataset in {load_s:.2f} s; "
           f"ray_mode {tr.train_dset.ray_mode}, use_mask {tr.use_mask}; "
           f"{r['steps']} steps of {REAL_RAYS} rays (under the profiler), median "
           f"{step_ms:.3f} ms, {REAL_RAYS / (step_ms / 1e3):.0f} rays/s, loss first-5 "
@@ -908,6 +909,131 @@ def chest_datasets(dev) -> dict:
           f"{res['reprojection_check']}")
     return res
 
+
+def real_scale_batches(dev, record, entry_of, smi: str) -> dict:
+    """Phase (h): the real-scale smoke's path, the batch sweep, and the main
+    path's kernels at 8,192 rays; returns the ``real_scale`` JSON line's
+    object."""
+    import torch
+
+    import batch_sweep_torch as sweep
+    import real_scale_smoke_torch as rs_smoke
+    from neuralvolumetricreconstructionformedicalimages_torch.data.dataset import (
+        gather_view_batch)
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+    from neuralvolumetricreconstructionformedicalimages_torch.train.optim import (
+        make_optimizer)
+    from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
+        build_model, make_epoch_fn)
+
+    t_phase = time.perf_counter()
+    out = {}
+    # h1. scripts/real_scale_smoke_torch.py's path at full size: 187 random
+    # views of 1024^2, rays on the fly, 4-step epochs of 1024 rays (a
+    # warm-up epoch with the eager step and the capture, 2 timed)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    rec, _, trace_counts = traced(lambda: rs_smoke.run(timed_epochs=2, device=dev))
+    launches = dict(_build.LAUNCHES)
+    steps = rs_smoke.STEPS * 3
+    if rec["ray_mode"] != "onthefly":
+        raise AssertionError(f"h1: ray_mode {rec['ray_mode']}")
+    if len(rec["losses"]) != steps or not np.isfinite(rec["losses"]).all():
+        raise AssertionError(f"h1: bad losses {rec['losses']}")
+    check_exact("h1 real-scale smoke", launches, steps)
+    check_exact("h1 real-scale smoke (profiler trace)", trace_counts, steps)
+    rec.update(launches=launches, trace_counts=trace_counts)
+    print(f"h1 real-scale smoke ({smi}): {rec['views']} views of {rec['detector']}, "
+          f"ray_mode {rec['ray_mode']} ({rec['ray_tensor_avoided_gib']:.1f} GiB of rays "
+          f"avoided), dataset {rec['dataset_s']:.1f} s, warm-up {rec['warm_s']:.2f} s, "
+          f"{rec['ms_per_step']:.3f} ms a step (under the profiler), {rec['rays_s']:.0f} "
+          f"rays/s, peak allocated {rec['peak_allocated_mb']:.1f} MB; launches "
+          f"{launches}, kernels in the trace {trace_counts}")
+    for kname in MAIN_NEEDS:
+        entry_of(kname).setdefault("path_launches", {})["real_scale_smoke"] = \
+            int(launches.get(kname, 0))
+    out["h1"] = rec
+    torch.cuda.empty_cache()
+
+    # h2. scripts/batch_sweep_torch.py, each configuration in a process of
+    # its own; every figure of its records finite, each harness's kernels
+    # once a step
+    proc, wall = timed(lambda: subprocess.run(
+        [sys.executable, "scripts/batch_sweep_torch.py", *SWEEP_ARGS, "--out",
+         os.path.join("logs", "chip_smoke_batch_sweep.md")],
+        capture_output=True, text=True, timeout=600))
+    if proc.returncode != 0:
+        raise AssertionError(f"h2: the batch sweep failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    recs = [json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+            if line.startswith("SWEEPREC ")]
+    if [r["n_rays"] for r in recs] != [int(b) for b in SWEEP_ARGS[1].split(",")]:
+        raise AssertionError(f"h2: records of {[r['n_rays'] for r in recs]}")
+    for r in recs:
+        figures = [v for v in r.values() if isinstance(v, (int, float))]
+        figures += [x for v in r.values() if isinstance(v, list) for x in v]
+        if not np.isfinite(figures).all():
+            raise AssertionError(f"h2: a figure is not finite: {r}")
+        check_exact(f"h2 {r['n_rays']} rays (timed epochs)", r["launches"],
+                    r["timed_epoch_steps"])
+        check_exact(f"h2 {r['n_rays']} rays (timed iso blocks)", r["iso_launches"],
+                    r["timed_epoch_steps"])
+        print(f"h2 batch sweep ({smi}), {r['n_rays']} rays, {r['table_dtype']} table: "
+              f"epoch {r['epoch_ms']:.3f} ms ({r['epoch_rays_s']:.0f} rays/s, device "
+              f"{r['epoch_device_ms']:.3f} ms), iso {r['iso_ms']:.3f} ms "
+              f"({r['iso_rays_s']:.0f} rays/s, device {r['iso_device_ms']:.3f} ms), "
+              f"warm-up {r['warm_s']:.2f} s, peak {r['peak_mb']:.1f} MB")
+    out["h2"] = {"args": SWEEP_ARGS, "wall_s": wall, "records": recs}
+
+    # h3. the 8,192-ray step in this process: BATCH_STEPS graphed steps on
+    # the sweep's scan (the table mode, the bucket and the unroll exactly
+    # once a step: the forward is not chunked), then the three kernels held
+    # against their plain versions on one batch of it (1,572,864 sorted
+    # points a level)
+    cfg = sweep.sweep_cfg(BATCH_RAYS, "bfloat16")
+    arrays = sweep.scan_arrays(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    field = build_model(cfg, g, dev)
+    epoch_fn = make_epoch_fn(cfg, field, make_optimizer(cfg, field.parameters()),
+                             BATCH_STEPS, n_rays=BATCH_RAYS, n_batch=1, use_mask=False,
+                             generator=g)
+    order = torch.arange(BATCH_STEPS, device=dev)[:, None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, dev_ms, trace_counts = traced(lambda: epoch_fn(arrays, order, 0).cpu())
+    launches = dict(_build.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"h3: bad losses {losses.tolist()}")
+    check_exact("h3 8192 rays", launches, BATCH_STEPS)
+    check_exact("h3 8192 rays (profiler trace)", trace_counts, BATCH_STEPS)
+    print(f"h3 {BATCH_RAYS} rays ({smi}): {BATCH_STEPS} steps (one eager, a capture, "
+          f"replays; under the profiler), device {dev_ms / BATCH_STEPS:.3f} ms a step, "
+          f"peak {peak_mb:.1f} MB, losses {losses.tolist()}, launches {launches}, "
+          f"kernels in the trace {trace_counts}")
+    gk = torch.Generator(device=dev).manual_seed(2)
+    rays = gather_view_batch(arrays, 0, BATCH_RAYS, gk)["rays"]
+    spec = field.encoder.grid
+    sk, spf = sorted_stream(spec, encoder_points(field, rays, sweep.N_SAMPLES, gk))
+    del epoch_fn, field, arrays, rays
+    torch.cuda.empty_cache()
+    table = torch.randn((spec.num_levels, spec.table_size, spec.level_dim),
+                        generator=gk, device=dev)
+    grads = torch.randn((spec.num_levels, spec.level_dim, sk.shape[1]),
+                        generator=gk, device=dev)
+    hold_path_kernels(record, spec, sk, spf, table, grads, "table_batch8192",
+                      "batch8192", plain_iters=3)
+    for key, mode_key in BATCH_MODES.items():
+        entry_of(mode_key)["launches"] = int(launches.get(key, 0))
+    out["h3"] = dict(n_rays=BATCH_RAYS, steps=BATCH_STEPS, points_a_level=int(sk.shape[1]),
+                     losses=losses.tolist(), device_ms=dev_ms / BATCH_STEPS,
+                     peak_mb=peak_mb, launches=launches, trace_counts=trace_counts)
+    del sk, spf, table, grads
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase h (h1-h3) in {out['wall_s']:.1f} s")
+    return out
 
 
 def epoch_numbers(tr, order, graphed: bool) -> dict:
@@ -1561,6 +1687,10 @@ def main() -> int:
     configs_line = config_classes(dev, record, entry_of, smi)
     torch.cuda.empty_cache()
 
+    # ---- h. the real scan at scale and the batch sweep ----
+    real_scale_line = real_scale_batches(dev, record, entry_of, smi)
+    torch.cuda.empty_cache()
+
     line = []
     for r in results.values():
         for entry in (r, *r.get("modes", {}).values()):
@@ -1570,6 +1700,7 @@ def main() -> int:
     print(json.dumps({"data": data_line, "card": smi}))
     print(json.dumps({"parallel": parallel_line}))
     print(json.dumps({"configs": configs_line, "card": smi}))
+    print(json.dumps({"real_scale": real_scale_line, "card": smi}))
     print(json.dumps({"kernels": line, "train": {
         "config": cfg_path, "steps": steps, "median_step_ms": step_ms,
         "rays_per_s": n_rays / (step_ms / 1e3), "loss_first10": first,

@@ -9,6 +9,7 @@ times (they include any gap in which the host left the stream idle).
 ``utils/profiling.py::time_fn``, with CUDA events in place of JAX's host
 fence); ``profiler_trace`` captures a ``torch.profiler`` trace.
 
+``traced_device_ms`` sums the device time of what a call ran;
 ``device_times`` times a call on the card without the host's launch path:
 events around one call bracket ctypes, argument checks and allocation as
 well as the kernel, which for a kernel of tens of microseconds may time
@@ -20,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -132,6 +133,33 @@ def profiler_trace(logdir: Optional[str]):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def device_kernels(prof) -> Dict[str, Tuple[float, int]]:
+    """{name: (device ms, launches)} of every kernel and memset in a
+    finished ``torch.profiler`` run."""
+    out = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "is_user_annotation", False):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            out[ev.key] = (dev_us / 1e3, ev.count)
+    return out
+
+
+def traced_device_ms(run: Callable):
+    """``run()`` under ``torch.profiler``: (its result, the device ms of
+    every kernel and memset it ran, :func:`device_kernels`) -- for a CUDA
+    graph's replays, the kernels that actually ran."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return out, sum(ms for ms, _ in kernels.values()), kernels
+
+
 def device_times(fn: Callable, iters: int = 50, calls: int = 200) -> Dict:
     """Device time per call of ``fn`` (which launches work on the card), in
     milliseconds, two ways:
@@ -149,15 +177,7 @@ def device_times(fn: Callable, iters: int = 50, calls: int = 200) -> Dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    parts = {}
-    for ev in prof.key_averages():
-        if getattr(ev, "is_user_annotation", False):
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            parts[ev.key] = dev_us / 1e3 / iters
+    parts = {k: ms / iters for k, (ms, _) in device_kernels(prof).items()}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

@@ -169,15 +169,10 @@ def profile(tr, args) -> int:
     sites, inner = sync_sites(lambda: run(3))
     n_syncs = sum(sites.values()) / SYNC_STEPS
 
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if getattr(ev, "is_user_annotation", False):  # ranges such as Optimizer.step
-            continue
-        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            rows.append((ev.key, dev_us / 1e3 / args.steps, ev.count / args.steps))
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
+        device_kernels)
+    rows = [(k, ms / args.steps, n / args.steps)
+            for k, (ms, n) in device_kernels(prof).items()]
     rows.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)

@@ -815,3 +815,48 @@ def test_force_mesh_matches_plain_trainer_on_card(dev, tmp_path, monkeypatch):
     assert torch.equal(runs["mesh"][0], runs["plain"][0]), runs
     for a, b in zip(runs["mesh"][1].parameters(), runs["plain"][1].parameters()):
         assert torch.equal(a, b)
+
+
+def test_graphed_steps_at_8192_rays_equal_eager_steps(dev, monkeypatch):
+    """The batch sweep's largest step at full width (the chest_50 model,
+    8,192 rays x 192 samples: 1,572,864 points a level through the main
+    path's kernels): 3 graphed steps (one eager, a capture, 2 replays)
+    launch the table mode, the bucket and the unroll once a step, and
+    their losses and parameters are ``torch.equal`` to 3 eager steps from
+    the same seed."""
+    from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
+    from neuralvolumetricreconstructionformedicalimages_torch.train.optim import (
+        make_optimizer, set_lr)
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.chdir(repo)
+    monkeypatch.syspath_prepend(os.path.join(repo, "scripts"))
+    import batch_sweep_torch as sweep
+
+    n_rays, steps = 8192, 3
+    cfg = sweep.sweep_cfg(n_rays, "bfloat16")
+    T.pin_fp32()
+    arrays = sweep.scan_arrays(dev)
+    order = torch.arange(steps, device=dev)[:, None]
+
+    def parts():
+        g = torch.Generator(device=dev).manual_seed(1)
+        field = T.build_model(cfg, g, dev)
+        opt = make_optimizer(cfg, field.parameters())
+        kw = dict(n_rays=n_rays, n_batch=1, use_mask=False, generator=g)
+        return field, opt, T.make_epoch_fn(cfg, field, opt, steps, **kw), \
+            T.make_train_step(cfg, field, opt, **kw)
+
+    field, _, epoch_fn, _ = parts()
+    _build.reset_launches()
+    graphed = epoch_fn(arrays, order, 0)
+    assert epoch_fn.graphed.graph is not None
+    launches = dict(_build.LAUNCHES)
+    for kname, every_step in _GRAPH_PATHS["sorted"][1].items():
+        assert launches.get(kname, 0) == (steps if every_step else 0), (kname, launches)
+    field_e, opt_e, _, step = parts()
+    set_lr(opt_e, float(cfg["train"]["lrate"]))
+    eager = torch.stack([step(arrays, order[i]) for i in range(steps)])
+    assert torch.equal(graphed, eager), (graphed, eager)
+    for a, b in zip(field.parameters(), field_e.parameters()):
+        assert torch.equal(a, b)

@@ -32,7 +32,9 @@ def _forbidden(names):
 def test_port_has_files():
     assert len(FILES) > 20 and "neuralvolumetricreconstructionformedicalimages_torch/data/projector.py" in FILES
     assert {"scripts/config_matrix_converge_torch.py",
-            "scripts/profile_torch_step.py"} <= set(FILES)
+            "scripts/profile_torch_step.py", "scripts/real_scale_train_r5_torch.py",
+            "scripts/real_scale_train_torch.py", "scripts/real_scale_smoke_torch.py",
+            "scripts/batch_sweep_torch.py"} <= set(FILES)
 
 
 @pytest.mark.parametrize("rel", FILES)
