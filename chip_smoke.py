@@ -169,6 +169,35 @@ h. the real scan at scale and the batch sweep, after g, each driven with
    once a step and the roll build and the rolled mode never (the forward
    is not chunked), by the replay-aware counts and by a profiler trace; a
    ``real_scale`` JSON line before the kernels line.
+i. the last JAX scripts' paths, after h, each driven with the launch
+   counts set to 0 just before it and read just after:
+   i1. ``scripts/verify_drive_torch.py``'s drive whole (8 levels x 2^15
+       f32 table, ``relu`` head, 1024 rays x 96 samples, 35 blocks of 100
+       graphed steps, the first under the profiler): ``VERIFY PASS`` under
+       the JAX script's thresholds, the table mode, the bucket and the
+       unroll exactly once a step by count (3,500) and by trace (100 in
+       the first block); then the three held against their plain versions
+       at that shape (98,304 sorted points a level, the drive's f32
+       table), modes ``table_verify`` and ``verify`` of the kernels line;
+   i2. ``configs/chest_phantom_r3.yaml`` for two epochs with a checkpoint
+       each, then ``chest_phantom_consolidate.yaml`` and
+       ``chest_phantom_finetune.yaml`` (256 samples) one epoch each, each
+       resuming the last checkpoint, consolidate with ``lrate_step`` 2 and
+       finetune with 1, so that at each resumed epoch the new config's rate
+       differs from the one the checkpoint holds: the resumed epoch and
+       step, the rate on
+       the card equal to the new config's schedule, Adam's step counts on
+       the card, the graphed losses ``torch.equal`` to an eager resume from
+       the same checkpoint, the kernels once a step by count and trace;
+   i3. ``scripts/multiprocess_smoke_torch.py``: two gloo ranks sharing
+       cuda:0 meet through ``initialize_multihost`` on a free port, take
+       two sharded steps and must hold identical parameter digests;
+   i4. ``scripts/shard_overhead_torch.py`` at 8 steps: the graphed plain
+       step and the eager mesh-of-one step, the all-reduce of the
+       gradient's payload on one NCCL rank and on two gloo ranks;
+   i5. ``scripts/scaling_sweep_torch.py`` at 1 and 2 ranks sharing
+       cuda:0, finite rays/s; a ``scripts`` JSON line before the kernels
+       line.
 
 The bucket is the tile design of ``csrc/bucket_matmul.cu`` (one block per
 1024-column tile with two searches per tile, slice blocks for runs of
@@ -245,6 +274,17 @@ BATCH_RAYS, BATCH_STEPS = 8192, 4
 BATCH_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_batch8192]",
                "bucket_grad_matmul": "bucket_grad_matmul[batch8192]",
                "unroll_reduce_fm": "unroll_reduce_fm[batch8192]"}
+# Phase (i): the kernels-line entries at the verify drive's shape, the
+# resumes (config, epoch, StepLR period in epochs) and the scaling sweep's
+# rank counts
+VERIFY_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_verify]",
+                "bucket_grad_matmul": "bucket_grad_matmul[verify]",
+                "unroll_reduce_fm": "unroll_reduce_fm[verify]"}
+# consolidate's period fires the decay at its resumed epoch (the checkpoint
+# holds lrate, the new config gives lrate*gamma); finetune's gives gamma^3
+# where the checkpoint holds gamma^1, so a rate kept from it would fail
+RESUMES = (("consolidate", 2, 2), ("finetune", 3, 1))
+SWEEP_RANKS = (1, 2)
 
 
 def check_launches(where: str, launches, steps: int, needs=MAIN_NEEDS) -> None:
@@ -395,14 +435,15 @@ def stream_counts(spec, sk):
 
 
 def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
-                      plain_iters: int = 20) -> None:
+                      plain_iters: int = 20, table_dtype=None) -> None:
     """The kernels of a training path's step on one batch's sorted stream
     (keys ``sk``, packed fracs ``spf``, f32 ``table``, ``grads``): the
     span gather's table mode bit-equal to the rolled mode and to its plain
     version, the bucket bit-equal to its plain version and bit-identical
     twice, the unroll of its gradient atol 1e-5; each timed by ``record``
     under ``span_mode`` (the span gather) and ``mode`` (the bucket and the
-    unroll; None for their main entries)."""
+    unroll; None for their main entries).  The gather rounds the table to
+    ``table_dtype`` (default bf16, the chest_50 model's)."""
     import torch
 
     from neuralvolumetricreconstructionformedicalimages_torch.ops import (
@@ -413,14 +454,14 @@ def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
     L, S, C = spec.num_levels, spec.table_size, spec.level_dim
     D, K = spec.input_dim, 1 << spec.input_dim
     F, E, B = K * C, rk._PAD, sk.shape[1]
-    bf16 = torch.bfloat16
+    tdt = torch.bfloat16 if table_dtype is None else table_dtype
 
     # span gather, table mode: the canonical f32 table at the corners'
-    # offsets, rounded to bf16 as the roll rounds
-    out = sg.span_gather_sorted_table(sk, spf, table, spec, bf16)
-    rolled = sg.span_gather_sorted(sk, spf, rk.roll_broadcast_fm(table, spec, bf16),
+    # offsets, rounded to the table dtype as the roll rounds
+    out = sg.span_gather_sorted_table(sk, spf, table, spec, tdt)
+    rolled = sg.span_gather_sorted(sk, spf, rk.roll_broadcast_fm(table, spec, tdt),
                                    input_dim=D)
-    plain = sg.span_gather_sorted_table_plain(sk, spf, table, spec, bf16)
+    plain = sg.span_gather_sorted_table_plain(sk, spf, table, spec, tdt)
     torch.cuda.synchronize()
     err = (out - plain).abs().max()
     if not torch.equal(out, rolled):
@@ -440,8 +481,8 @@ def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
           f"canonical table {sec_table * 32 / 1e6:.1f} MB, beside "
           f"{L * B * 4 * (2 + C) / 1e6:.1f} MB of keys, fracs and output")
     record("span_gather_sorted", err,
-           lambda: sg.span_gather_sorted_table(sk, spf, table, spec, bf16),
-           lambda: sg.span_gather_sorted_table_plain(sk, spf, table, spec, bf16), None,
+           lambda: sg.span_gather_sorted_table(sk, spf, table, spec, tdt),
+           lambda: sg.span_gather_sorted_table_plain(sk, spf, table, spec, tdt), None,
            L * B * 4 * 2 + touched * C * 4 + L * C * B * 4,
            L * B * (K * D + 2 * K * C), mode=span_mode, plain_iters=plain_iters)
 
@@ -1036,6 +1077,186 @@ def real_scale_batches(dev, record, entry_of, smi: str) -> dict:
     return out
 
 
+def verify_drive(dev, record, entry_of, smi: str) -> dict:
+    """i1: ``scripts/verify_drive_torch.py``'s drive whole, then the main
+    path's kernels at its shape."""
+    import torch
+
+    import verify_drive_torch as vd
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+
+    # i1. 35 blocks of 100 graphed steps (the first block, with the eager
+    # step and the capture, under the profiler), then the eval under the
+    # JAX script's thresholds
+    drive = vd.Drive(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    _, dev_ms, trace_counts = traced(drive.block)
+    drive.train(log=lambda m: None)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    steps = drive.steps_done
+    if steps != vd.BLOCKS * vd.BLOCK_STEPS:
+        raise AssertionError(f"i1: the drive ran {steps} steps")
+    check_exact("i1 verify drive", launches, steps)
+    check_exact("i1 verify drive, first block (profiler trace)", trace_counts,
+                vd.BLOCK_STEPS)
+    ev, eval_s = timed(drive.evaluate)
+    print(f"i1 verify drive ({smi}): {steps} steps, {drive.ms_per_step():.3f} ms a step "
+          f"(median block), first block {drive.blocks[0]['wall_s']:.2f} s (device "
+          f"{dev_ms / vd.BLOCK_STEPS:.3f} ms a step, under the profiler); loss "
+          f"{drive.blocks[0]['loss']:.3e} -> {drive.blocks[-1]['loss']:.3e}; launches "
+          f"{launches}, first block's trace {trace_counts}")
+    print(f"i1 proj PSNR: {ev['proj_psnr']:.1f} dB  mean sigma inside={ev['inside']:.3f} "
+          f"outside={ev['outside']:.3f} (eval {eval_s:.2f} s)")
+    print("VERIFY", "PASS" if ev["ok"] else "FAIL")
+    if not ev["ok"]:
+        raise AssertionError(f"i1: the verify drive failed the JAX thresholds: {ev}")
+    res = dict(steps=steps, ms_per_step=drive.ms_per_step(), blocks=drive.blocks,
+               first_block_device_ms=dev_ms / vd.BLOCK_STEPS, eval=ev, eval_s=eval_s,
+               launches=launches, trace_counts_first_block=trace_counts)
+
+    # the three kernels at the drive's shape: one batch of 1024 rays x 96
+    # samples (98,304 sorted points a level, 8 levels of 2^15), the f32
+    # table the drive trained
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx = vd.draw_indices(g, drive.arrays["rays"].shape[0], 1, dev)[0]
+    spec = drive.field.encoder.grid
+    sk, spf = sorted_stream(spec, encoder_points(
+        drive.field, drive.arrays["rays"][idx], vd.N_SAMPLES, g))
+    table = drive.field.table.detach().clone()
+    grads = torch.randn((spec.num_levels, spec.level_dim, sk.shape[1]), generator=g,
+                        device=dev)
+    del drive
+    hold_path_kernels(record, spec, sk, spf, table, grads, "table_verify", "verify",
+                      plain_iters=3, table_dtype=torch.float32)
+    for key, mode_key in VERIFY_MODES.items():
+        entry_of(mode_key)["launches"] = int(launches.get(key, 0))
+    res["points_a_level"] = int(sk.shape[1])
+    return res
+
+
+def resume_across_configs(dev) -> dict:
+    """i2: chest_phantom_r3 for two epochs with a checkpoint at each, then
+    a consolidate-shaped and a finetune-shaped resume of it, each graphed
+    against an eager resume from the same checkpoint."""
+    import shutil
+
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.config import load_config
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+    from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import Trainer
+
+    workdir = os.path.join("logs", "chip_smoke_resume")
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = load_config("configs/chest_phantom_r3.yaml")
+    cfg["train"]["epoch"] = 1                  # epochs 0 and 1
+    cfg["log"].update(i_eval=0, i_save=1)      # a checkpoint at epoch 1
+    tr = Trainer(cfg, workdir=workdir, device="cuda")
+    tr.start()
+    steps_per_epoch = tr.steps_per_epoch
+    del tr
+    out = {}
+    # each resume runs one more epoch under its own StepLR period (RESUMES)
+    for name, epoch, lrate_step in RESUMES:
+        cfg = load_config(f"configs/chest_phantom_{name}.yaml")
+        cfg["train"].update(epoch=epoch, lrate_step=lrate_step)
+        cfg["log"].update(i_eval=0, i_save=1)
+        eager = Trainer(cfg, workdir=workdir, device="cuda")    # both restore epoch - 1
+        graphed = Trainer(cfg, workdir=workdir, device="cuda")
+        start_step = epoch * steps_per_epoch
+        for t in (eager, graphed):
+            if (t.epoch_start, t.global_step) != (epoch, start_step):
+                raise AssertionError(f"i2 {name}: resumed at epoch {t.epoch_start}, "
+                                     f"step {t.global_step}")
+        train = cfg["train"]
+        want_lr = float(train["lrate"]) * float(train["lrate_gamma"]) ** (
+            epoch // lrate_step)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        _, _, trace_counts = traced(graphed.start)
+        launches = dict(_build.LAUNCHES)
+        check_exact(f"i2 {name}", launches, steps_per_epoch)
+        check_exact(f"i2 {name} (profiler trace)", trace_counts, steps_per_epoch)
+        lr = graphed.optimizer.param_groups[0]["lr"]
+        if not (isinstance(lr, torch.Tensor) and lr.device.type == "cuda"
+                and torch.equal(lr, torch.tensor(want_lr, device=lr.device))
+                and graphed.schedule(start_step) == want_lr):
+            raise AssertionError(f"i2 {name}: the rate after the resume is {lr}, the "
+                                 f"new config's schedule gives {want_lr}")
+        steps = [st["step"] for st in graphed.optimizer.state.values()]
+        if not all(s.device.type == "cuda" and float(s) == start_step + steps_per_epoch
+                   for s in steps):
+            raise AssertionError(f"i2 {name}: Adam's step counts {steps[:3]}...")
+        order = torch.as_tensor(eager._view_order(epoch), device=dev)
+        eager_losses = torch.stack([eager.train_step(v) for v in order]).cpu()
+        if not torch.equal(eager_losses, torch.tensor(graphed.losses)):
+            raise AssertionError(f"i2 {name}: the graphed losses differ from the eager "
+                                 f"resume's: {graphed.losses} vs {eager_losses.tolist()}")
+        n_samples = int(graphed.cfg["render"]["n_samples"])
+        out[name] = dict(epoch=epoch, start_step=start_step, lr=want_lr,
+                         n_samples=n_samples, losses=list(graphed.losses),
+                         launches=launches, trace_counts=trace_counts)
+        print(f"i2 {name}: resumed at epoch {epoch} (step {start_step}), rate "
+              f"{float(lr):.3g} on the card (schedule {want_lr:.3g}), Adam's steps on "
+              f"the card at {start_step + steps_per_epoch}, {n_samples} samples; "
+              f"{len(graphed.losses)} graphed losses torch.equal to the eager resume's; "
+              f"launches {launches}, kernels in the trace {trace_counts}")
+        del eager, graphed
+        torch.cuda.empty_cache()
+    return out
+
+
+def remaining_scripts(dev, record, entry_of, smi: str) -> dict:
+    """Phase (i): the verify drive, resume across configs and the
+    multi-process scripts; returns the ``scripts`` JSON line's object."""
+    import torch
+
+    import multiprocess_smoke_torch as mps
+    import scaling_sweep_torch as sweep
+    import shard_overhead_torch as so
+
+    t_phase = time.perf_counter()
+    out = {"i1": verify_drive(dev, record, entry_of, smi)}
+    torch.cuda.empty_cache()
+    out["i2"] = resume_across_configs(dev)
+
+    # i3. two gloo ranks sharing cuda:0 through initialize_multihost on a
+    # free port: identical parameter digests after two sharded steps
+    res = mps.smoke("cuda", port=mps.free_port())
+    if not res["ok"]:
+        raise AssertionError(f"i3: the ranks' digests differ: {res['ranks']}")
+    print(f"i3 multi-process smoke: {len(res['ranks'])} gloo ranks on cuda:0 in "
+          f"{res['wall_s']:.1f} s, identical params_sha256 "
+          f"{res['ranks'][0]['params_sha256'][:16]}...")
+    out["i3"] = res
+
+    # i4. the mesh-of-one overhead and the gradient all-reduce
+    rec = so.run(dev, steps=so.STEPS)
+    figures = [rec["plain"]["ms_per_step"], rec["mesh1"]["ms_per_step"],
+               rec["allreduce_1rank_ms"], rec["allreduce_2rank_gloo_ms"]]
+    if not np.isfinite(figures).all():
+        raise AssertionError(f"i4: a figure is not finite: {rec}")
+    print(f"i4 shard overhead ({smi}): plain graphed {rec['plain']['ms_per_step']:.3f} ms "
+          f"a step, mesh of one (eager, {rec['backend_1rank']}) "
+          f"{rec['mesh1']['ms_per_step']:.3f} ms; all-reduce of {rec['payload_mib']:.1f} "
+          f"MiB: {rec['allreduce_1rank_ms']:.3f} ms one rank, "
+          f"{rec['allreduce_2rank_gloo_ms']:.3f} ms two gloo ranks")
+    out["i4"] = rec
+    torch.cuda.empty_cache()
+
+    # i5. the scaling sweep at 1 and 2 ranks sharing cuda:0
+    rows = sweep.sweep("cuda", SWEEP_RANKS, 1024, 64, 15, 8, "take")
+    if not np.isfinite([r["rays_per_s"] for r in rows]).all():
+        raise AssertionError(f"i5: {rows}")
+    print(f"i5 scaling sweep ({smi}), ranks sharing cuda:0: {rows}")
+    out["i5"] = rows
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase i (i1-i5) in {out['wall_s']:.1f} s")
+    return out
+
+
 def epoch_numbers(tr, order, graphed: bool) -> dict:
     """One more epoch of ``tr`` on ``order`` timed by events (median step
     ms), and one traced (device ms a step): through the graphed epoch
@@ -1069,26 +1290,6 @@ def param_checksum(module) -> list:
     """Each parameter tensor's sum and sum of squares, in f64."""
     return [float(x) for p in module.parameters()
             for x in (p.detach().double().sum(), p.detach().double().square().sum())]
-
-
-def allreduce_ms(module, iters: int = 10) -> float:
-    """Median ms of one SUM all-reduce, over the default group, of a buffer
-    the size of ``module``'s flat gradient (host clock, the card
-    synchronised after each)."""
-    import torch
-    import torch.distributed as dist
-
-    n = sum(p.numel() for p in module.parameters())
-    buf = torch.zeros(n, device=next(module.parameters()).device)
-    times = []
-    for i in range(iters + 2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dist.all_reduce(buf)
-        torch.cuda.synchronize()
-        if i >= 2:
-            times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
 
 
 def train_steps(tr, where: str, steps: int) -> dict:
@@ -1180,6 +1381,7 @@ def parallel_rank(rank: int, world: int, store: str, out_dir: str, cfg_path: str
     from neuralvolumetricreconstructionformedicalimages_torch.config import load_config
     from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
         Trainer, pin_fp32)
+    from shard_overhead_torch import allreduce_ms
 
     torch.cuda.set_device(0)
     pin_fp32()
@@ -1200,7 +1402,8 @@ def parallel_rank(rank: int, world: int, store: str, out_dir: str, cfg_path: str
                 res["fed"] = fed_check(tr, f"{phase} rank {rank}", perturb=False)
             res.update(train_steps(tr, f"{phase} rank {rank}", TRAIN_STEPS))
             res["checksum"] = param_checksum(tr.field)
-            res["allreduce_ms"] = allreduce_ms(tr.field)
+            res["allreduce_ms"] = allreduce_ms(
+                sum(p.numel() for p in tr.field.parameters()), tr.device)
             if phase == "f2":
                 res["fed"] = fed_check(tr, f"{phase} rank {rank}", perturb=True)
             print(f"{phase} rank {rank}: median step {res['median_step_ms']:.3f} ms, "
@@ -1225,6 +1428,7 @@ def parallel_phase(cfg_path: str, main_losses, smi: str) -> dict:
     from neuralvolumetricreconstructionformedicalimages_torch.config import load_config
     from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
     from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import Trainer
+    from shard_overhead_torch import allreduce_ms
 
     # f1. a mesh of one on a one-rank NCCL group the trainer makes itself
     cfg = load_config(cfg_path)
@@ -1238,7 +1442,7 @@ def parallel_phase(cfg_path: str, main_losses, smi: str) -> dict:
         _, wall = timed(tr.start)
         launches = dict(_build.LAUNCHES)
         backend = dist.get_backend()
-        ar_ms = allreduce_ms(tr.field)
+        ar_ms = allreduce_ms(sum(p.numel() for p in tr.field.parameters()), tr.device)
     finally:
         tr.close()
     check_launches("f1", launches, 50)
@@ -1691,6 +1895,11 @@ def main() -> int:
     real_scale_line = real_scale_batches(dev, record, entry_of, smi)
     torch.cuda.empty_cache()
 
+    # ---- i. the verify drive, resume across configs, the multi-process
+    # scripts ----
+    scripts_line = remaining_scripts(dev, record, entry_of, smi)
+    torch.cuda.empty_cache()
+
     line = []
     for r in results.values():
         for entry in (r, *r.get("modes", {}).values()):
@@ -1701,6 +1910,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel_line}))
     print(json.dumps({"configs": configs_line, "card": smi}))
     print(json.dumps({"real_scale": real_scale_line, "card": smi}))
+    print(json.dumps({"scripts": scripts_line, "card": smi}))
     print(json.dumps({"kernels": line, "train": {
         "config": cfg_path, "steps": steps, "median_step_ms": step_ms,
         "rays_per_s": n_rays / (step_ms / 1e3), "loss_first10": first,

@@ -64,27 +64,31 @@ def sweep_cfg(n_rays: int, table_dtype: str) -> Dict[str, Any]:
     return cfg
 
 
-def scan_arrays(device) -> Dict[str, Any]:
-    """The step's arrays of a 50-view 256^2 cone scan (2 mm voxels over
-    128^3, the views over half a turn): precomputed rays, random targets
-    in [0, 0.1), every pixel valid and unmasked."""
+def scan_arrays(device, n_views: int = N_VIEWS, det=(H, W), n_voxel: int = 128,
+                d_voxel: float = 0.002, d_det: float = 0.002) -> Dict[str, Any]:
+    """The step's arrays of an ``n_views`` cone scan of ``det`` pixels
+    (``d_det`` m) over ``n_voxel``^3 voxels of ``d_voxel`` m, the views over
+    half a turn (default: 50 views of 256^2, 2 mm voxels over 128^3):
+    precomputed rays, random targets in [0, 0.1), every pixel valid and
+    unmasked."""
     import torch
 
     from neuralvolumetricreconstructionformedicalimages_torch import geometry as G
+    h, w = det
     geo = G.ConeGeometry(
-        DSD=1.5, DSO=1.0, nDetector=(W, H), dDetector=(0.002, 0.002),
-        nVoxel=(128, 128, 128), dVoxel=(0.002, 0.002, 0.002), mode="cone")
+        DSD=1.5, DSO=1.0, nDetector=(w, h), dDetector=(d_det, d_det),
+        nVoxel=(n_voxel,) * 3, dVoxel=(d_voxel,) * 3, mode="cone")
     near, far = G.get_near_far(geo)
-    angles = np.linspace(0, np.pi, N_VIEWS, endpoint=False).astype(np.float32)
+    angles = np.linspace(0, np.pi, n_views, endpoint=False).astype(np.float32)
     ro, rd = G.rays_for_angles(geo, angles, device)
     g = torch.Generator(device=device).manual_seed(0)
     return {
         "rays": G.pack_rays(ro, rd, near, far),
-        "projs": torch.rand((N_VIEWS, H, W), generator=g, device=device) * 0.1,
-        "mask": torch.ones((N_VIEWS, H, W), device=device),
-        "pools": torch.arange(H * W, dtype=torch.int32, device=device)
-        .expand(N_VIEWS, H * W).contiguous(),
-        "pool_counts": torch.full((N_VIEWS,), H * W, dtype=torch.int32, device=device),
+        "projs": torch.rand((n_views, h, w), generator=g, device=device) * 0.1,
+        "mask": torch.ones((n_views, h, w), device=device),
+        "pools": torch.arange(h * w, dtype=torch.int32, device=device)
+        .expand(n_views, h * w).contiguous(),
+        "pool_counts": torch.full((n_views,), h * w, dtype=torch.int32, device=device),
     }
 
 

@@ -196,17 +196,22 @@ def card_line(dev) -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+def copy_eval_files(src: str, outdir: str, prefix: str = "") -> None:
+    """An eval directory's stats and images into ``outdir``, each name
+    given ``prefix``."""
+    for f in ("stats.txt", "proj_show_left_gt_right_pred.png",
+              "slice_show_row1_gt_row2_pred.png"):
+        if os.path.exists(os.path.join(src, f)):
+            shutil.copy(os.path.join(src, f), os.path.join(outdir, prefix + f))
+
+
 def copy_eval(workdir: str, outdir: str) -> None:
     """``metrics.jsonl`` and the last eval's stats and images into ``outdir``."""
     shutil.copy(os.path.join(workdir, "metrics.jsonl"),
                 os.path.join(outdir, "metrics.jsonl"))
     evals = sorted(os.listdir(os.path.join(workdir, "eval")))
     if evals:
-        src = os.path.join(workdir, "eval", evals[-1])
-        for f in ("stats.txt", "proj_show_left_gt_right_pred.png",
-                  "slice_show_row1_gt_row2_pred.png"):
-            if os.path.exists(os.path.join(src, f)):
-                shutil.copy(os.path.join(src, f), os.path.join(outdir, f))
+        copy_eval_files(os.path.join(workdir, "eval", evals[-1]), outdir)
 
 
 def scan(dev) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Dict[str, Any]]:

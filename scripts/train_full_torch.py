@@ -7,10 +7,17 @@ time.
     python3 scripts/train_full_torch.py [--config configs/smoke.yaml ...] \
         [--out chiprun_out/full_runs.json]
 
-A config whose dataset is missing and that the generator can make
-(``SCANS``: ``data/lamino_chip.pickle`` from ``configs/scans/lamino_chip.yaml``)
-gets it from ``data/generate.py``'s CLI on the card first.  Each run
-starts fresh in ``logs/full/<expname>``.
+A config whose dataset is missing gets it on the card first: from
+``data/generate.py``'s CLI where the generator makes it (``SCANS``:
+``data/lamino_chip.pickle`` from ``configs/scans/lamino_chip.yaml``), or
+from the port's script that makes it (``MAKERS``: the smoothed and the
+view-sweep chest datasets).  Each run trains in ``logs/full/<expname>``,
+emptied first unless the config resumes (``train.resume``): then it
+continues that directory's newest checkpoint, as
+``chest_phantom_consolidate`` and ``chest_phantom_finetune`` continue
+``chest_phantom_r3``'s, and appends to its ``metrics.jsonl``.  After each
+run the log as it stands is kept beside it as
+``metrics_<config name>.jsonl``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,18 @@ CONFIGS = ("configs/smoke.yaml", "configs/chest_phantom_r3.yaml",
            "configs/lamino_chip.yaml")
 # dataset -> (scan config, phantom) for the generator
 SCANS = {"./data/lamino_chip.pickle": ("configs/scans/lamino_chip.yaml", "lamino_chip")}
+# dataset -> the port's script that makes it
+MAKERS = {"./data/chest_phantom_smooth.pickle": "scripts/make_smooth_phantom_torch.py",
+          "./data/chest_phantom_views100.pickle": "scripts/make_view_sweep_data_torch.py",
+          "./data/chest_phantom_views200.pickle": "scripts/make_view_sweep_data_torch.py"}
+
+
+def workdir_for(cfg) -> str:
+    """``logs/full/<expname>``, emptied unless the config resumes."""
+    workdir = os.path.join("logs", "full", cfg["exp"]["expname"])
+    if not cfg["train"]["resume"]:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return workdir
 
 
 def summarize(metrics_path: str) -> dict:
@@ -70,6 +89,10 @@ def main(argv=None) -> int:
         cfg = load_config(cfg_path)
         run = {"config": cfg_path, "epochs": int(cfg["train"]["epoch"])}
         datadir = cfg["exp"]["datadir"]
+        if not os.path.exists(datadir) and datadir in MAKERS:
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, MAKERS[datadir]], check=True)
+            run["generate_s"] = time.perf_counter() - t0
         if not os.path.exists(datadir) and datadir in SCANS:
             scan, phantom = SCANS[datadir]
             t0 = time.perf_counter()
@@ -79,14 +102,16 @@ def main(argv=None) -> int:
                             os.path.dirname(datadir), "--outputName",
                             os.path.splitext(os.path.basename(datadir))[0]], check=True)
             run["generate_s"] = time.perf_counter() - t0
-        workdir = os.path.join("logs", "full", cfg["exp"]["expname"])
-        shutil.rmtree(workdir, ignore_errors=True)
+        workdir = workdir_for(cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cli.main(["--config", cfg_path, "--workdir", workdir])
         torch.cuda.synchronize()
         run["wall_s"] = time.perf_counter() - t0
-        run.update(summarize(os.path.join(workdir, "metrics.jsonl")))
+        metrics = os.path.join(workdir, "metrics.jsonl")
+        stem = os.path.splitext(os.path.basename(cfg_path))[0]
+        shutil.copy(metrics, os.path.join(workdir, f"metrics_{stem}.jsonl"))
+        run.update(summarize(metrics))
         results["runs"][cfg_path] = run
         curve = run["loss_curve"]
         picks = sorted({0, len(curve) // 4, len(curve) // 2, 3 * len(curve) // 4,

@@ -34,7 +34,9 @@ def test_port_has_files():
     assert {"scripts/config_matrix_converge_torch.py",
             "scripts/profile_torch_step.py", "scripts/real_scale_train_r5_torch.py",
             "scripts/real_scale_train_torch.py", "scripts/real_scale_smoke_torch.py",
-            "scripts/batch_sweep_torch.py"} <= set(FILES)
+            "scripts/batch_sweep_torch.py", "scripts/verify_drive_torch.py",
+            "scripts/quality_summary_torch.py", "scripts/multiprocess_smoke_torch.py",
+            "scripts/shard_overhead_torch.py", "scripts/scaling_sweep_torch.py"} <= set(FILES)
 
 
 @pytest.mark.parametrize("rel", FILES)
