@@ -17,7 +17,9 @@ Run from the root of a checkout, with no arguments:
    bit-identical across two runs, also on 700 identical points; unroll
    atol 1e-5;
 3. times each kernel, its plain version and (where one PyTorch call
-   computes the same function) that call with ``utils/profiling.py::
+   computes the same function: ``torch.gather`` for the roll,
+   ``index_add_`` for the bucket, the unroll and the scatter) that call
+   with ``utils/profiling.py::
    time_fn`` (CUDA events around each call; the median), beside the
    least time the card could take (bytes over 3.35 TB/s, or f32
    operations over 67 TFLOP/s, whichever is larger; beside the span
@@ -107,7 +109,15 @@ f. the parallel layer (``parallel/``) on the card, after e:
    f1. ``configs/chest_phantom_r3.yaml`` with ``parallel: {mesh: {data: 1,
        sample: 1}, force_mesh: true}``: the trainer makes a one-rank NCCL
        group and trains one epoch (50 steps at full width) through the
-       sharded step; its 50 losses ``torch.equal`` to phase 4's;
+       graphed sharded epoch (one eager step, one capture, 49 replays);
+       its 50 losses ``torch.equal`` to phase 4's and to the same mesh's
+       eager ``train_step`` loop from the seed; the table mode, the bucket
+       and the unroll exactly once a step by the replay-aware counts and
+       by a profiler trace, and one gradient all-reduce a step by the
+       count (NCCL's device work in the trace printed beside it); 5 more
+       replays under ``set_sync_debug_mode("error")``; the graphed and the
+       eager mesh-of-one step (median ms, device ms, idle share, peak
+       memory);
    f2. data=2: two ranks that share cuda:0 under gloo (NCCL refuses two
        ranks on one device), chest_phantom_r3 at 1024 global rays (512 a
        rank), 20 steps; then one fed batch of 1024 rays split in two
@@ -193,8 +203,9 @@ i. the last JAX scripts' paths, after h, each driven with the launch
        cuda:0 meet through ``initialize_multihost`` on a free port, take
        two sharded steps and must hold identical parameter digests;
    i4. ``scripts/shard_overhead_torch.py`` at 8 steps: the graphed plain
-       step and the eager mesh-of-one step, the all-reduce of the
-       gradient's payload on one NCCL rank and on two gloo ranks;
+       step, the graphed mesh-of-one step (NCCL) and its eager step, the
+       all-reduce of the gradient's payload on one NCCL rank and on two
+       gloo ranks;
    i5. ``scripts/scaling_sweep_torch.py`` at 1 and 2 ranks sharing
        cuda:0, finite rays/s; a ``scripts`` JSON line before the kernels
        line.
@@ -410,6 +421,37 @@ def index_add_call(sk, sf, grads, table_size: int):
                                device=sk.device).index_add_(0, flat, pay)
 
 
+def unroll_index_add_call(grad_ext, spec, C: int):
+    """The one PyTorch call that computes the unroll: ``index_add_`` of the
+    whole flattened rolled gradient (wrap extension included) into the flat
+    canonical gradient at a precomputed index, ``R[l, k*C+c, s]`` to ``G[l,
+    (s + off[l,k]) % S, c]`` and the extension's columns to one spare entry
+    at the end.  ``index_add_`` sums one dtype, so a bf16 gradient is added
+    from an f32 copy made here, outside the timed call.  Fails unless its
+    result matches the kernel's to rtol/atol 1e-5 (its adds are atomic, in
+    no fixed order)."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import (
+        roll_kernels as rk)
+    from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
+        corner_offsets)
+    dev = grad_ext.device
+    L, F, Se = grad_ext.shape
+    S, K = Se - rk._PAD, F // C
+    offs = torch.as_tensor(corner_offsets(spec), device=dev).long()     # [L, K]
+    s = torch.arange(Se, device=dev)
+    idx = ((torch.arange(L, device=dev)[:, None, None, None] * S
+            + (s + offs[:, :, None, None]) % S) * C
+           + torch.arange(C, device=dev)[None, None, :, None])          # [L, K, C, Se]
+    idx = torch.where(s < S, idx, L * S * C).reshape(-1).to(torch.int32)
+    src = grad_ext.float().reshape(-1)
+    call = lambda: torch.zeros(L * S * C + 1, device=dev).index_add_(0, idx, src)  # noqa: E731
+    torch.testing.assert_close(call()[:-1].view(L, S, C),
+                               rk.unroll_reduce_fm(grad_ext, spec, C), rtol=1e-5, atol=1e-5)
+    return call
+
+
 def stream_counts(spec, sk):
     """What the span gather must read for the sorted keys ``sk`` [L, B]:
     the distinct keys, the canonical rows that some corner of some key
@@ -516,7 +558,8 @@ def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
         raise AssertionError(f"unroll_reduce_fm differs by {float(err)}")
     record("unroll_reduce_fm", err,
            lambda: rk.unroll_reduce_fm(g1, spec, C),
-           lambda: rk.unroll_reduce_fm_plain(g1, spec, C), None,
+           lambda: rk.unroll_reduce_fm_plain(g1, spec, C),
+           unroll_index_add_call(g1, spec, C),
            L * F * S * 4 + L * S * C * 4, L * S * C * (K - 1), mode=mode,
            plain_iters=plain_iters)
 
@@ -1235,13 +1278,18 @@ def remaining_scripts(dev, record, entry_of, smi: str) -> dict:
     # i4. the mesh-of-one overhead and the gradient all-reduce
     rec = so.run(dev, steps=so.STEPS)
     figures = [rec["plain"]["ms_per_step"], rec["mesh1"]["ms_per_step"],
+               rec["mesh1_eager"]["ms_per_step"],
                rec["allreduce_1rank_ms"], rec["allreduce_2rank_gloo_ms"]]
     if not np.isfinite(figures).all():
         raise AssertionError(f"i4: a figure is not finite: {rec}")
+    if not rec["mesh1_graphed"]:
+        raise AssertionError(f"i4: the mesh of one was not graphed ({rec['backend_1rank']})")
     print(f"i4 shard overhead ({smi}): plain graphed {rec['plain']['ms_per_step']:.3f} ms "
-          f"a step, mesh of one (eager, {rec['backend_1rank']}) "
-          f"{rec['mesh1']['ms_per_step']:.3f} ms; all-reduce of {rec['payload_mib']:.1f} "
-          f"MiB: {rec['allreduce_1rank_ms']:.3f} ms one rank, "
+          f"a step, mesh of one graphed ({rec['backend_1rank']}) "
+          f"{rec['mesh1']['ms_per_step']:.3f} ms ({rec['mesh1']['overhead_ms']:+.3f}), "
+          f"eager {rec['mesh1_eager']['ms_per_step']:.3f} ms "
+          f"({rec['mesh1_eager']['overhead_ms']:+.3f}); all-reduce of "
+          f"{rec['payload_mib']:.1f} MiB: {rec['allreduce_1rank_ms']:.3f} ms one rank, "
           f"{rec['allreduce_2rank_gloo_ms']:.3f} ms two gloo ranks")
     out["i4"] = rec
     torch.cuda.empty_cache()
@@ -1428,36 +1476,96 @@ def parallel_phase(cfg_path: str, main_losses, smi: str) -> dict:
     from neuralvolumetricreconstructionformedicalimages_torch.config import load_config
     from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
     from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import Trainer
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
+        traced_device_ms)
     from shard_overhead_torch import allreduce_ms
 
-    # f1. a mesh of one on a one-rank NCCL group the trainer makes itself
+    # f1. a mesh of one on a one-rank NCCL group the trainer makes itself:
+    # Trainer.start runs the graphed sharded epoch (one eager step, one
+    # capture, 49 replays)
     cfg = load_config(cfg_path)
     cfg["parallel"] = {"mesh": {"data": 1, "sample": 1}, "force_mesh": True}
     cfg["train"]["epoch"] = 0       # one epoch: 50 views -> 50 steps
     cfg["log"].update(i_eval=0, i_save=0)   # the eval draws nothing
+    f1_needs = dict(MAIN_NEEDS, all_reduce_grads=True)
     tr = Trainer(cfg, workdir=os.path.join("logs", "chip_smoke_f1"), device="cuda")
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
-        _, wall = timed(tr.start)
+        t0 = time.perf_counter()
+        _, _, trace = traced_device_ms(tr.start)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e6
         launches = dict(_build.LAUNCHES)
         backend = dist.get_backend()
+        graph = tr._epoch_fn.graphed.graph
+        if graph is None:
+            raise AssertionError("f1: the sharded epoch captured no graph")
+        trace_counts = {}
+        for kname, (_, n) in trace.items():
+            key = _launch_key(kname)
+            if key:
+                trace_counts[key] = trace_counts.get(key, 0) + n
+        # NCCL's device work in the trace: an in-place sum on one rank may
+        # launch none (the replay-aware count shows the all-reduce)
+        nccl = {k: n for k, (_, n) in trace.items() if "nccl" in k.lower()}
+        check_exact("f1", launches, 50, f1_needs)
+        check_exact("f1 (profiler trace)", trace_counts, 50)
+        order = torch.as_tensor(tr._view_order(0), device=tr.device)
+        # 5 more replayed steps: any host sync raises
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tr.train_steps(order[:5])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if tr._epoch_fn.graphed.graph is not graph:
+            raise AssertionError("f1: the sharded step was captured again")
+        graphed_nums = epoch_numbers(tr, order, graphed=True)
         ar_ms = allreduce_ms(sum(p.numel() for p in tr.field.parameters()), tr.device)
     finally:
         tr.close()
-    check_launches("f1", launches, 50)
-    if not torch.equal(torch.tensor(tr.losses), torch.tensor(main_losses)):
+    losses, step_ms = torch.tensor(tr.losses), float(np.median(tr.step_ms))
+    if not torch.equal(losses, torch.tensor(main_losses)):
         raise AssertionError(f"f1: the force_mesh losses differ from phase 4's: "
                              f"{tr.losses} vs {main_losses}")
-    f1 = dict(config=cfg_path, mesh=cfg["parallel"], backend=backend,
-              steps=len(tr.losses), wall_s=wall,
-              median_step_ms=float(np.median(tr.step_ms)), allreduce_ms=ar_ms,
-              losses=list(tr.losses), losses_equal_phase4=True, launches=launches)
-    print(f"f1 force_mesh ({backend}, one rank): {len(tr.losses)} steps in {wall:.1f} s, "
-          f"median step {f1['median_step_ms']:.3f} ms, gradient all-reduce "
-          f"{ar_ms:.3f} ms, losses torch.equal to phase 4's, launches {launches}")
     del tr
     torch.cuda.empty_cache()
+    # the same epoch through the mesh's eager train_step loop, from the seed
+    eager = Trainer(cfg, workdir=os.path.join("logs", "chip_smoke_f1_eager"), device="cuda")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eager_losses = torch.stack([eager.train_step(v) for v in order]).cpu()
+        eager_peak = torch.cuda.max_memory_allocated() / 1e6
+        eager_nums = epoch_numbers(eager, order, graphed=False)
+    finally:
+        eager.close()
+    if not torch.equal(eager_losses, losses):
+        bad = int((eager_losses != losses).sum())
+        raise AssertionError(f"f1: the eager sharded loop's losses differ from the "
+                             f"graphed epoch's at {bad} of 50 steps")
+    del eager
+    torch.cuda.empty_cache()
+    graphed_nums.update(peak_mb_first_epoch=peak, host_syncs_per_replayed_step=0)
+    eager_nums["peak_mb_first_epoch"] = eager_peak
+    f1 = dict(config=cfg_path, mesh=cfg["parallel"], backend=backend,
+              steps=len(losses), wall_s=wall, allreduce_ms=ar_ms,
+              median_step_ms=step_ms, losses=losses.tolist(), losses_equal_phase4=True,
+              losses_equal_eager_sharded=True, launches=launches,
+              trace_counts=trace_counts, nccl_in_trace=nccl,
+              graphed=graphed_nums, eager=eager_nums)
+    print(f"f1 force_mesh ({backend}, one rank, graphed): {len(losses)} steps in "
+          f"{wall:.1f} s (under the profiler), losses torch.equal to phase 4's and to the "
+          f"eager sharded loop's, launches {launches}, kernels in the trace "
+          f"{trace_counts}, NCCL work in the trace {nccl}; gradient all-reduce "
+          f"{ar_ms:.3f} ms; host syncs in 5 replayed steps: 0")
+    for mode, m in (("graphed", graphed_nums), ("eager", eager_nums)):
+        print(f"f1 mesh of one, {mode} ({smi}): median {m['median_step_ms']:.3f} ms a "
+              f"step, device {m['device_ms']:.3f} ms a step, idle share "
+              f"{m['idle_share']:.3f}, peak memory {m['peak_mb_first_epoch']:.1f} MB, "
+              f"reserved {m['reserved_mb']:.1f} MB")
 
     # f2, f3. two ranks sharing cuda:0 under gloo
     out_dir = os.path.join("logs", "chip_smoke_f")
@@ -1701,7 +1809,8 @@ def main() -> int:
         raise AssertionError(f"unroll_reduce_fm (bf16 input) differs by {float(err)}")
     record("unroll_reduce_fm", err,
            lambda: rk.unroll_reduce_fm(h1, spec, C),
-           lambda: rk.unroll_reduce_fm_plain(h1, spec, C), None,
+           lambda: rk.unroll_reduce_fm_plain(h1, spec, C),
+           unroll_index_add_call(h1, spec, C),
            L * F * S * 2 + L * S * C * 4, L * S * C * (K - 1), mode="bf16_in")
     del h1, u
     # bucket at D=0 on the XOR stream of the same points (the XOR backward)

@@ -24,6 +24,13 @@ Port of the JAX ``parallel/step.py``, one process a device:
 
 The optimizer update runs replicated on every rank (identical inputs,
 identical outputs).
+
+``make_sharded_epoch_fn`` is the counterpart of JAX's jitted ``shard_map``
+epoch: on a card whose group runs NCCL the first step is eager (it also
+makes every communicator the step uses), then one step is captured as a
+CUDA graph and replayed for every further step, so the host only launches
+replays.  Gloo stages its collectives through the host, which a graph
+cannot hold: under gloo, and on the CPU, the steps run eagerly.
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ from ..data.dataset import gather_batch
 from ..losses import get_loss_fn, global_sum
 from ..models.density_field import DensityField
 from ..ops.sampling import stratified_z_vals
+from ..ops import _build
 from ..train.optim import make_lr_schedule, set_lr
-from ..train.trainer import make_loss_fn
+from ..train.trainer import _GraphedStep, epoch_loop, make_loss_fn
 from .mesh import DATA_AXIS, SAMPLE_AXIS
 
 
@@ -57,12 +65,31 @@ def fold_generator(generator: torch.Generator, index: int) -> torch.Generator:
 
 def all_reduce_grads(params: List[torch.nn.Parameter]) -> None:
     """Sum every parameter's gradient over all ranks with one all-reduce of
-    one flat buffer; each ``.grad`` becomes a view of the summed buffer."""
+    one flat buffer; each ``.grad`` becomes a view of the summed buffer.
+
+    Safe to capture: in a CUDA graph the buffer is allocated once, from the
+    graph's pool, and every replay rewrites it at the same address, which
+    the captured Adam reads through the ``.grad`` views.  Counted as
+    ``_build.LAUNCHES["all_reduce_grads"]`` (a replay counts what its
+    capture recorded)."""
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    _build.LAUNCHES["all_reduce_grads"] += 1
     for p, g in zip(params, torch.split(flat, [g.numel() for g in grads])):
         p.grad = g.view_as(p)
+
+
+def graphs_collectives(device: torch.device) -> bool:
+    """Whether the sharded step is captured on ``device``: on a card whose
+    collectives run on NCCL.  Gloo stages every collective through the
+    host, which a CUDA graph cannot hold, so under gloo (and on the CPU)
+    the steps run eagerly.  This is a branch by backend, not a fallback."""
+    if device.type != "cuda":
+        return False
+    backend = str(dist.get_backend())
+    # "nccl", or a map of device types to backends ("cpu:gloo,cuda:nccl")
+    return backend == "nccl" or "cuda:nccl" in backend.split(",")
 
 
 def _render_acc_sample_sharded(
@@ -78,6 +105,7 @@ def _render_acc_sample_sharded(
     generator: Optional[torch.Generator] = None,
     t_rand: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    noise_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Beer-Lambert accumulation with the depth-sample axis split over the
     ranks of ``group``.  Every rank computes the whole (cheap) z grid and
@@ -87,8 +115,9 @@ def _render_acc_sample_sharded(
 
     Matches ``render_rays`` + ``raw2outputs`` for the coarse pass.  The
     jitter comes from ``generator`` (or ``t_rand``, the whole grid's), the
-    noise ([rays, local_samples]) from ``generator`` folded with
-    ``sample_index`` (or ``noise``).
+    noise ([rays, local_samples]) from ``noise_generator`` (the step's
+    generator folded with ``sample_index`` once, when the step is built)
+    or ``noise``.
     """
     rays_o, rays_d = rays[..., :3], rays[..., 3:6]
     near, far = rays[..., 6:7], rays[..., 7:8]
@@ -109,11 +138,10 @@ def _render_acc_sample_sharded(
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_loc[..., :, None]
     pts = torch.clamp(pts, -bound, bound)
     sigma = field(pts)[..., 0]
-    if raw_noise_std > 0.0 and (noise is not None or generator is not None):
+    if raw_noise_std > 0.0 and (noise is not None or noise_generator is not None):
         if noise is None:
-            # distinct noise per slab: the generator folded with the index
             noise = torch.randn(sigma.shape, dtype=sigma.dtype, device=sigma.device,
-                                generator=fold_generator(generator, sample_index))
+                                generator=noise_generator)
         sigma = sigma + noise * raw_noise_std
 
     partial = torch.sum(sigma * d_loc, dim=-1)
@@ -121,13 +149,23 @@ def _render_acc_sample_sharded(
 
 
 def _make_shard_body(cfg: Dict[str, Any], field: DensityField, optimizer,
-                     n_rays: int, n_batch: int, use_mask: bool, mesh, *,
+                     n_rays: int, n_batch: int, use_mask: bool, mesh,
+                     generator: Optional[torch.Generator] = None, *,
                      field_fine: Optional[DensityField] = None,
                      geo=None, near: float = 0.0, far: float = 0.0):
-    """Per-rank step: ``step(arrays, views, generator, lr, *, batch=None,
-    t_rand=None, noise=None) -> loss``.  ``batch`` ([local rays] of
-    ``rays``/``projs``/``mask``), ``t_rand`` and ``noise`` feed this
-    rank's draws in place of the generator's."""
+    """Per-rank step: ``step(arrays, views, *, batch=None, r=None,
+    t_rand=None, noise=None) -> loss`` at the rate the optimizer holds (the
+    step sets none: the caller fills it in between steps, so that a
+    captured step reads it).  ``batch`` ([local rays] of
+    ``rays``/``projs``/``mask``), ``r`` (this rank's pool draw), ``t_rand``
+    and ``noise`` feed this rank's draws in place of ``generator``'s.
+
+    ``step.generators`` are the generators a graph of the step must
+    register: ``generator`` and, with the sample axis split and
+    ``raw_noise_std > 0``, the noise generator, ``generator`` folded with
+    the sample index once, here (distinct noise per slab, drawn on from
+    step to step); ``step.refold_noise()`` folds it again from
+    ``generator``'s state (after a restore set it)."""
     render_cfg = cfg["render"]
     n_samples = int(render_cfg["n_samples"])
     n_fine = int(render_cfg["n_fine"])
@@ -162,34 +200,44 @@ def _make_shard_body(cfg: Dict[str, Any], field: DensityField, optimizer,
     loss_calc = get_loss_fn(loss_name, group=data_group)
     loss_rays = make_loss_fn(cfg, use_mask, group=data_group)
     params = [p for f in (field, field_fine) if f is not None for p in f.parameters()]
+    noise_generator = (fold_generator(generator, sample_index)
+                       if n_sample > 1 and raw_noise_std > 0.0 and generator is not None
+                       else None)
 
-    def loss_fn(batch, generator, t_rand, noise):
+    def loss_fn(batch, t_rand, noise):
         if n_sample > 1:
             acc = _render_acc_sample_sharded(
                 batch["rays"], field, n_samples=n_samples,
                 local_samples=local_samples, sample_index=sample_index,
                 group=sample_group, perturb=perturb, raw_noise_std=raw_noise_std,
-                generator=generator, t_rand=t_rand, noise=noise)
+                generator=generator, t_rand=t_rand, noise=noise,
+                noise_generator=noise_generator)
             return loss_calc(acc, batch["projs"], batch["mask"] if use_mask else None)[0]
         return loss_rays(field, field_fine, batch, generator, t_rand=t_rand, noise=noise)
 
-    def step(arrays, views, generator, lr, *, batch=None, t_rand=None, noise=None):
+    def step(arrays, views, *, batch=None, r=None, t_rand=None, noise=None):
         if batch is None:
             views = torch.as_tensor(views, dtype=torch.long,
                                     device=arrays["pools"].device)
             if tuple(views.shape) != (n_batch,):
                 raise ValueError(f"views of shape {tuple(views.shape)}, the step "
                                  f"takes [{n_batch}]")
-            batch = gather_batch(arrays, views, local_rays, generator, geo=geo,
+            batch = gather_batch(arrays, views, local_rays, generator, r=r, geo=geo,
                                  near=near, far=far)
-        set_lr(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch, generator, t_rand, noise)
+        loss = loss_fn(batch, t_rand, noise)
         loss.backward()
         all_reduce_grads(params)
         optimizer.step()
         return loss.detach()
 
+    def refold_noise():
+        if noise_generator is not None:
+            noise_generator.set_state(fold_generator(generator, sample_index).get_state())
+
+    step.generator, step.noise_generator = generator, noise_generator
+    step.generators = tuple(g for g in (generator, noise_generator) if g is not None)
+    step.refold_noise = refold_noise
     return step
 
 
@@ -209,11 +257,11 @@ def make_sharded_train_step(cfg: Dict[str, Any], field: DensityField, optimizer,
                             n_rays: int, n_batch: int, use_mask: bool,
                             field_fine: Optional[DensityField] = None,
                             geo=None, near: float = 0.0, far: float = 0.0):
-    """One sharded optimizer step on this rank.
+    """One sharded optimizer step on this rank, eager.
 
     Returns ``fn(arrays, views [n_batch], step, *, batch=None, t_rand=None,
-    noise=None) -> loss``: the rate of ``schedule(step)``, ``n_rays /
-    data`` pixels of each view drawn from ``fn.generator`` (``generator``,
+    noise=None) -> loss``: the rate of ``schedule(step)`` set, then ``n_rays
+    / data`` pixels of each view drawn from ``fn.generator`` (``generator``,
     folded with the data index when ``data > 1``), the loss of the global
     batch, and ``field``'s parameters updated by ``optimizer`` with the
     gradient of that loss.  ``geo``/``near``/``far`` enable the on-the-fly
@@ -221,14 +269,14 @@ def make_sharded_train_step(cfg: Dict[str, Any], field: DensityField, optimizer,
     """
     schedule = make_lr_schedule(cfg, steps_per_epoch)
     body = _make_shard_body(cfg, field, optimizer, n_rays, n_batch, use_mask, mesh,
-                            field_fine=field_fine, geo=geo, near=near, far=far)
-    draws = draw_generator(generator, mesh)
+                            draw_generator(generator, mesh), field_fine=field_fine,
+                            geo=geo, near=near, far=far)
 
     def fn(arrays, views, step, *, batch=None, t_rand=None, noise=None):
-        return body(arrays, views, draws, schedule(step), batch=batch,
-                    t_rand=t_rand, noise=noise)
+        set_lr(optimizer, schedule(step))
+        return body(arrays, views, batch=batch, t_rand=t_rand, noise=noise)
 
-    fn.generator = draws
+    fn.generator = body.generator
     return fn
 
 
@@ -238,20 +286,32 @@ def make_sharded_epoch_fn(cfg: Dict[str, Any], field: DensityField, optimizer,
                           n_rays: int, n_batch: int, use_mask: bool,
                           field_fine: Optional[DensityField] = None,
                           geo=None, near: float = 0.0, far: float = 0.0):
-    """One sharded epoch: the steps of :func:`make_sharded_train_step` over
-    ``view_order``, launched without waiting for the device.
+    """One sharded epoch (the JAX ``make_sharded_epoch_fn``'s role: the
+    host touches the device once per epoch).
 
-    Returns ``fn(arrays, view_order [steps, n_batch], start_step) -> losses
-    [steps]`` (on the device).
+    Returns ``fn(arrays, view_order [steps, n_batch], start_step, *,
+    draws=None, timer=None) -> losses [steps]`` (on the device), the
+    contract of ``train/trainer.py::make_epoch_fn``: step ``i`` is the
+    sharded step on ``view_order[i]`` at the rate ``schedule(start_step +
+    i)``, filled into the optimizer between the steps; ``draws`` feeds this
+    rank's draws (``r`` [steps, n_batch, local rays], ``t_rand``,
+    ``noise``).  ``fn.step`` is the step (eagerly: ``Trainer.train_step``),
+    ``fn.generator`` this rank's draw generator, ``fn.graphed`` the
+    ``_GraphedStep``, ``fn.refold_noise`` the step's.
+
+    By backend (:func:`graphs_collectives`): on a card under NCCL the first
+    step is eager -- it makes every NCCL communicator the step uses (the
+    data group's, the sample group's and the whole mesh's) -- then one step
+    is captured as a CUDA graph with the draw and noise generators
+    registered, and every further step is a copy of its views into the
+    graph's buffer and a replay.  A capture that fails raises.  Under gloo,
+    and on the CPU, the steps run eagerly, one after another.
     """
-    step_fn = make_sharded_train_step(
-        cfg, field, optimizer, mesh, steps_per_epoch, generator, n_rays=n_rays,
-        n_batch=n_batch, use_mask=use_mask, field_fine=field_fine, geo=geo,
-        near=near, far=far)
-
-    def fn(arrays, view_order, start_step):
-        return torch.stack([step_fn(arrays, views, start_step + i)
-                            for i, views in enumerate(view_order)])
-
-    fn.generator = step_fn.generator
+    body = _make_shard_body(cfg, field, optimizer, n_rays, n_batch, use_mask, mesh,
+                            draw_generator(generator, mesh), field_fine=field_fine,
+                            geo=geo, near=near, far=far)
+    graphed = _GraphedStep(body, optimizer, body.generators)
+    fn = epoch_loop(body, graphed, optimizer, make_lr_schedule(cfg, steps_per_epoch),
+                    graphs_collectives)
+    fn.generator, fn.refold_noise = body.generator, body.refold_noise
     return fn

@@ -15,9 +15,10 @@ Port of the JAX ``train/trainer.py``:
   rendered in full, the voxel grid queried, projection MSE/PSNR and 3D
   PSNR/SSIM, slice mosaics and npy/png/stats.txt artifacts;
 - with ``parallel.mesh`` larger than one device (or ``parallel.force_mesh``)
-  the sharded step of ``parallel/step.py`` over the ranks of the process
-  group: rank 0 alone evaluates, logs and saves, and every rank restores
-  the same checkpoint.
+  the sharded epoch function of ``parallel/step.py`` over the ranks of the
+  process group (captured and replayed like ``make_epoch_fn``'s under
+  NCCL, eager under gloo): rank 0 alone evaluates, logs and saves, and
+  every rank restores the same checkpoint.
 
 The trainer runs on the card unless it is given ``device="cpu"``; without
 a card it raises.
@@ -173,20 +174,23 @@ class _GraphedStep:
 
     The first call (and the first after the graph's key changed: an input's
     shape, or a tensor the graph reads that moved) runs the step eagerly on
-    the capture stream -- it warms the allocator, cuBLAS on that stream and
-    Adam's state -- and then captures it, with ``generator`` registered so
-    that every replay draws on from where the last left off.  Every later
-    call copies its inputs into the graph's buffers and replays it.
+    the capture stream -- it warms the allocator, cuBLAS on that stream,
+    Adam's state and any NCCL communicator the step uses -- and then
+    captures it, with ``generators`` (one, a sequence, or None) registered
+    so that every replay draws on from where the last left off.  Every
+    later call copies its inputs into the graph's buffers and replays it.
 
     A capture adds nothing to ``_build.LAUNCHES``; each replay adds the
     launches the capture recorded.  A capture that fails raises: nothing
     drops back to eager steps.
     """
 
-    def __init__(self, step: Callable, optimizer, generator):
+    def __init__(self, step: Callable, optimizer, generators):
         self.step = step
         self.optimizer = optimizer
-        self.generator = generator
+        if not isinstance(generators, (list, tuple)):
+            generators = (generators,)
+        self.generators = tuple(g for g in generators if g is not None)
         self.key = None
         self.graph = None
         self.stream = None
@@ -228,8 +232,8 @@ class _GraphedStep:
         loss.record_stream(main)
         static = {k: v.clone() for k, v in inputs.items()}
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
+        for g in self.generators:
+            graph.register_generator_state(g)
         before = Counter(_build.LAUNCHES)
         try:
             with torch.cuda.graph(graph, stream=self.stream):
@@ -278,11 +282,21 @@ def make_epoch_fn(cfg: Dict[str, Any], field: DensityField, optimizer,
     it reads moved.  The rate is filled into Adam's device tensor between
     steps (once per epoch with the StepLR schedule).
     """
-    schedule = make_lr_schedule(cfg, steps_per_epoch)
     step = make_train_step(cfg, field, optimizer, n_rays=n_rays, n_batch=n_batch,
                            use_mask=use_mask, generator=generator,
                            field_fine=field_fine, geo=geo, near=near, far=far)
-    graphed = _GraphedStep(step, optimizer, generator)
+    return epoch_loop(step, _GraphedStep(step, optimizer, generator), optimizer,
+                      make_lr_schedule(cfg, steps_per_epoch),
+                      lambda dev: dev.type == "cuda")
+
+
+def epoch_loop(step: Callable, graphed: "_GraphedStep", optimizer,
+               schedule: Callable[[int], float],
+               graphed_on: Callable[[torch.device], bool]) -> Callable:
+    """The epoch function of :func:`make_epoch_fn` over ``step`` (``step(
+    arrays, views, **draws) -> loss``, which sets no rate): the rate of
+    ``schedule`` filled in between the steps, and each step through
+    ``graphed`` where ``graphed_on(device)`` holds, else eagerly."""
 
     def fn(arrays, view_order, start_step: int, *, draws=None, timer=None):
         dev = arrays["pools"].device
@@ -291,13 +305,14 @@ def make_epoch_fn(cfg: Dict[str, Any], field: DensityField, optimizer,
         unknown = set(fed) - set(DRAWS)
         if unknown:
             raise ValueError(f"unknown draws {sorted(unknown)}; the step takes {DRAWS}")
+        capture = graphed_on(dev)
         losses = torch.empty(views.shape[0], device=dev)
         lr = None
         for i in range(views.shape[0]):
             if schedule(start_step + i) != lr:
                 lr = schedule(start_step + i)
                 set_lr(optimizer, lr)
-            if dev.type == "cuda":
+            if capture:
                 inputs = {"views": views[i], **{k: v[i] for k, v in fed.items()}}
                 losses[i] = graphed(arrays, inputs)
             else:
@@ -381,23 +396,22 @@ class Trainer:
         self.schedule = make_lr_schedule(cfg, self.steps_per_epoch)
         self._arrays = self.train_dset.arrays()
         ds = self.train_dset
-        # ``train_step`` runs the epoch function's step eagerly
-        self._epoch_fn = make_epoch_fn(
-            cfg, self.field, self.optimizer, self.steps_per_epoch,
-            n_rays=self.n_rays, n_batch=self.n_batch, use_mask=self.use_mask,
-            generator=self.generator, field_fine=self.field_fine, geo=ds.geo,
-            near=ds.near, far=ds.far)
-        self._sharded_step = None
+        # ``train_steps`` runs the epoch function, ``train_step`` its step
+        # eagerly; on a mesh the sharded epoch function
+        kw = dict(n_rays=self.n_rays, n_batch=self.n_batch, use_mask=self.use_mask,
+                  field_fine=self.field_fine, geo=ds.geo, near=ds.near, far=ds.far)
         if self.mesh is not None:
-            from ..parallel.step import make_sharded_train_step
+            from ..parallel.step import make_sharded_epoch_fn
 
-            self._sharded_step = make_sharded_train_step(
+            self._epoch_fn = make_sharded_epoch_fn(
                 cfg, self.field, self.optimizer, self.mesh, self.steps_per_epoch,
-                self.generator, n_rays=self.n_rays, n_batch=self.n_batch,
-                use_mask=self.use_mask, field_fine=self.field_fine, geo=ds.geo,
-                near=ds.near, far=ds.far)
+                self.generator, **kw)
             # this rank's draws: the generator folded with its data index
-            self.generator = self._sharded_step.generator
+            self.generator = self._epoch_fn.generator
+        else:
+            self._epoch_fn = make_epoch_fn(
+                cfg, self.field, self.optimizer, self.steps_per_epoch,
+                generator=self.generator, **kw)
 
         self.epoch_start = 0
         self.global_step = 0
@@ -520,6 +534,7 @@ class Trainer:
         if self.mesh is not None:
             from ..parallel.step import draw_generator
             self.generator.set_state(draw_generator(self.generator, self.mesh).get_state())
+            self._epoch_fn.refold_noise()
         self.epoch_start = int(state["epoch"]) + 1
         self.global_step = self.epoch_start * self.steps_per_epoch
         if self.rank == 0:
@@ -545,10 +560,6 @@ class Trainer:
         ``views`` (on a mesh, of the global batch); returns the (device)
         loss without waiting for it.  The step of :meth:`train_steps`,
         uncaptured; ``views`` already on the device costs no host copy."""
-        if self._sharded_step is not None:
-            loss = self._sharded_step(self._arrays, views, self.global_step)
-            self.global_step += 1
-            return loss
         views = torch.as_tensor(views, dtype=torch.long, device=self.device)
         set_lr(self.optimizer, self.schedule(self.global_step))
         loss = self._epoch_fn.step(self._arrays, views)
@@ -558,17 +569,10 @@ class Trainer:
     def train_steps(self, view_order, timer: Optional[StepTimer] = None
                     ) -> torch.Tensor:
         """The steps of ``view_order`` ([steps, n_batch]) from
-        ``global_step`` on: through the epoch function (a replayed CUDA
-        graph on the card), or on a mesh the sharded step's eager loop.
+        ``global_step`` on through the epoch function (on a mesh the sharded
+        one): a replayed CUDA graph on the card (on a mesh, under NCCL).
         Returns the losses [steps] on the device; ``timer.tick()`` after
         every step."""
-        if self._sharded_step is not None:
-            losses = []
-            for views in view_order:
-                losses.append(self.train_step(views))
-                if timer is not None:
-                    timer.tick()
-            return torch.stack(losses)
         losses = self._epoch_fn(self._arrays, view_order, self.global_step,
                                 timer=timer)
         self.global_step += len(view_order)

@@ -41,9 +41,10 @@ Run from the repository root on a machine with a CUDA card:
 Compare the two in one call, in ABBA order (graph, eager, eager, graph),
 as four runs of the script.  ``--encoder KEY=VALUE`` (repeatable)
 overrides a key of the config's ``encoder`` section, to profile another
-encoder path.  ``--force-mesh`` profiles the sharded step of
+encoder path.  ``--force-mesh`` profiles the sharded epoch of
 ``parallel/step.py`` on a mesh of one (a one-rank NCCL group the trainer
-makes; always eager).
+makes): graphed like the plain epoch, or with ``--eager`` its eager step
+loop.
 
 ``--out`` also writes the chrome trace there.  Imports nothing of JAX.
 """
@@ -80,7 +81,7 @@ def main(argv=None) -> int:
     ap.add_argument("--encoder", action="append", default=[], metavar="KEY=VALUE",
                     help="override an encoder config key (repeatable)")
     ap.add_argument("--force-mesh", action="store_true",
-                    help="the sharded step on a one-rank mesh")
+                    help="the sharded epoch on a one-rank mesh")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device available", file=sys.stderr)
@@ -142,9 +143,8 @@ def profile(tr, args) -> int:
     windows = np.cumsum([0, args.warmup, args.steps, args.steps, SYNC_STEPS])
 
     def run(w):
-        # the sharded step takes its views on the host
-        part = (order if args.force_mesh else order_dev)[windows[w]:windows[w + 1]]
-        if args.eager or args.force_mesh:
+        part = order_dev[windows[w]:windows[w + 1]]
+        if args.eager:
             for views in part:
                 tr.train_step(views)
         else:
@@ -176,7 +176,7 @@ def profile(tr, args) -> int:
     rows.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
-    mode = "eager loop" if args.eager or args.force_mesh else "graphed epoch"
+    mode = "eager loop" if args.eager else "graphed epoch"
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"config: {args.config} {' '.join(args.encoder)}"
           f"{' force_mesh' if args.force_mesh else ''}, {mode}, {args.steps} profiled "

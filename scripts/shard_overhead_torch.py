@@ -9,9 +9,12 @@ card about the mesh.
    through the plain epoch function (``train/trainer.py::make_epoch_fn``:
    one CUDA graph replayed step by step) against a mesh of one
    (``parallel/step.py::make_sharded_epoch_fn`` on a one-rank group: NCCL
-   on the card, gloo on the CPU).  The mesh's step is eager (the sharded
-   step is not captured), so the difference is that of an eager sharded
-   step against a graphed plain one, not the mesh's structure alone.
+   on the card, where it too is one captured step replayed; gloo on the
+   CPU, eager).  On the card both are graphed, so the difference is the
+   mesh's structure alone: the flat gradient's concatenation, the
+   all-reduces and their stream joins.  Beside them the same mesh's eager
+   step (``make_sharded_train_step`` step by step), the figure before the
+   sharded step was captured.
 2. The gradient all-reduce: its payload (every parameter in f32) and the
    measured time of one all-reduce of that payload, on the one-rank group
    and across two gloo ranks (sharing ``cuda:0`` on the card: NCCL
@@ -62,8 +65,9 @@ def sync(device) -> None:
 
 def measure(make_fn: Callable, cfg, arrays, device, steps: int) -> Dict[str, float]:
     """A fresh field and Adam, ``make_fn(field, optimizer, generator)``'s
-    epoch function run once (warm-up: the eager step and the capture) and
-    ``TIMED_EPOCHS`` times more; the best epoch's ms a step."""
+    epoch function (``fn(arrays, view_order, start_step) -> losses``) run
+    once (warm-up: the eager step and the capture) and ``TIMED_EPOCHS``
+    times more; the best epoch's ms a step."""
     import torch
 
     from neuralvolumetricreconstructionformedicalimages_torch.train.optim import (
@@ -134,7 +138,10 @@ def run(device, steps: int = STEPS, cfg: Optional[Dict[str, Any]] = None,
     from batch_sweep_torch import scan_arrays
     from multiprocess_smoke_torch import free_port, run_ranks
     from neuralvolumetricreconstructionformedicalimages_torch.parallel import (
-        MeshSpec, initialize_multihost, make_mesh, make_sharded_epoch_fn)
+        MeshSpec, initialize_multihost, make_mesh, make_sharded_epoch_fn,
+        make_sharded_train_step)
+    from neuralvolumetricreconstructionformedicalimages_torch.parallel.step import (
+        graphs_collectives)
     from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
         make_epoch_fn, pin_fp32, resolve_device)
     dev = resolve_device(device)
@@ -153,10 +160,18 @@ def run(device, steps: int = STEPS, cfg: Optional[Dict[str, Any]] = None,
     initialize_multihost(f"localhost:{free_port()}", 1, 0, device=dev)
     try:
         mesh = make_mesh(MeshSpec(data=1, sample=1), dev.type)
+        kw = dict(n_rays=n_rays, n_batch=1, use_mask=False)
         rec["mesh1"] = measure(
-            lambda f, o, g: make_sharded_epoch_fn(cfg, f, o, mesh, steps, g, n_rays=n_rays,
-                                                  n_batch=1, use_mask=False),
+            lambda f, o, g: make_sharded_epoch_fn(cfg, f, o, mesh, steps, g, **kw),
             cfg, arrays, dev, steps)
+        rec["mesh1_graphed"] = graphs_collectives(dev)
+
+        def eager_epoch(f, o, g):
+            step = make_sharded_train_step(cfg, f, o, mesh, steps, g, **kw)
+            return lambda arrays, order, start: torch.stack(
+                [step(arrays, v, start + i) for i, v in enumerate(order)])
+
+        rec["mesh1_eager"] = measure(eager_epoch, cfg, arrays, dev, steps)
         n = rec["plain"]["n_params"]
         rec["backend_1rank"] = dist.get_backend()
         rec["allreduce_1rank_ms"] = allreduce_ms(n, dev)
@@ -168,30 +183,42 @@ def run(device, steps: int = STEPS, cfg: Optional[Dict[str, Any]] = None,
     gloo = run_ranks(_allreduce_rank, 2, (2, free_port(), dev.type, n))
     rec["allreduce_2rank_gloo_ms"] = max(gloo)
     rec["payload_mib"] = n * 4 / 2 ** 20
-    rec["overhead_ms"] = rec["mesh1"]["ms_per_step"] - rec["plain"]["ms_per_step"]
-    rec["overhead_pct"] = 100 * rec["overhead_ms"] / rec["plain"]["ms_per_step"]
+    for name in ("mesh1", "mesh1_eager"):
+        over = rec[name]["ms_per_step"] - rec["plain"]["ms_per_step"]
+        rec[name]["overhead_ms"] = over
+        rec[name]["overhead_pct"] = 100 * over / rec["plain"]["ms_per_step"]
     return rec
 
 
 def report(rec: Dict[str, Any], card: str) -> str:
-    p, m = rec["plain"], rec["mesh1"]
+    p, m, e = rec["plain"], rec["mesh1"], rec["mesh1_eager"]
     where = ("two gloo ranks sharing cuda:0 (host-staged)" if rec["device"].startswith("cuda")
              else "two gloo ranks on the CPU")
+    how = "graphed" if rec["mesh1_graphed"] else f"eager under {rec['backend_1rank']}"
+    if rec["mesh1_graphed"]:
+        why = ("Both the plain and the mesh's epoch replay one captured CUDA graph a "
+               "step, so this is the mesh's structure alone: the flat gradient's "
+               "concatenation, the all-reduces and their stream joins.")
+    else:
+        why = (f"Under {rec['backend_1rank']} the sharded step is not captured (gloo "
+               "stages its collectives through the host), so the mesh's epoch is eager.")
     return "\n".join([
         "# Mesh overhead on one device (`scripts/shard_overhead_torch.py`)", "",
         f"Device: {rec['device']} ({card}). `configs/chest_50.yaml` at {rec['n_rays']} "
         f"rays x {rec['n_samples']} samples, {rec['views']} random views of "
         f"{rec['detector'][0]}x{rec['detector'][1]}, {rec['steps']}-step epochs, the best "
         f"of {TIMED_EPOCHS} after a warm-up epoch.", "",
-        "| step | ms a step | rays/s | warm-up s |", "|---|---|---|---|",
+        "| step | ms a step | rays/s | warm-up s | against plain |", "|---|---|---|---|---|",
         f"| plain (`make_epoch_fn`, graphed on the card) | {p['ms_per_step']:.3f} | "
-        f"{p['rays_per_s']:,.0f} | {p['warm_s']:.2f} |",
-        f"| mesh of one, eager (`make_sharded_epoch_fn`, {rec['backend_1rank']}) | "
-        f"{m['ms_per_step']:.3f} | {m['rays_per_s']:,.0f} | {m['warm_s']:.2f} |", "",
-        f"Mesh overhead: {rec['overhead_ms']:+.3f} ms a step ({rec['overhead_pct']:+.1f} % "
-        "of the plain step). The mesh's step is eager and the plain one a replayed "
-        "CUDA graph on the card, so this is an eager sharded step against a graphed "
-        "plain one.", "",
+        f"{p['rays_per_s']:,.0f} | {p['warm_s']:.2f} | |",
+        f"| mesh of one, {how} (`make_sharded_epoch_fn`, {rec['backend_1rank']}) | "
+        f"{m['ms_per_step']:.3f} | {m['rays_per_s']:,.0f} | {m['warm_s']:.2f} | "
+        f"{m['overhead_ms']:+.3f} ms ({m['overhead_pct']:+.1f} %) |",
+        f"| mesh of one, eager (`make_sharded_train_step` step by step) | "
+        f"{e['ms_per_step']:.3f} | {e['rays_per_s']:,.0f} | {e['warm_s']:.2f} | "
+        f"{e['overhead_ms']:+.3f} ms ({e['overhead_pct']:+.1f} %) |", "",
+        f"Mesh overhead: {m['overhead_ms']:+.3f} ms a step ({m['overhead_pct']:+.1f} % "
+        f"of the plain step). {why}", "",
         f"Gradient all-reduce: {rec['plain']['n_params']:,} f32 parameters, "
         f"{rec['payload_mib']:.1f} MiB a step. Measured (median of {AR_ITERS}): "
         f"{rec['allreduce_1rank_ms']:.3f} ms on the one-rank {rec['backend_1rank']} "

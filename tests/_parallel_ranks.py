@@ -102,6 +102,59 @@ def force_mesh_runs(tmp_path, device, n_batch: int = 1, steps: int = 6):
     return runs
 
 
+MESH1 = {"mesh": {"data": 1, "sample": 1}, "force_mesh": True}
+
+
+def tiny_arrays():
+    """A packed dataset of the shape of ``tests/test_parallel.py``'s (4
+    views of 8 x 8, a tilted parallel beam) from the port's geometry, the
+    projections drawn with numpy: numpy arrays by name."""
+    from neuralvolumetricreconstructionformedicalimages_torch import geometry as G
+    geo = G.ConeGeometry(
+        DSD=1.5, DSO=1.0, nDetector=(8, 8), dDetector=(0.01, 0.01),
+        nVoxel=(8, 8, 8), dVoxel=(0.01, 0.01, 0.01), mode="parallel", tilt_angle=10.0)
+    near, far = G.get_near_far(geo)
+    ro, rd = G.rays_for_angles(geo, np.linspace(0, np.pi, 4, endpoint=False))
+    rng = np.random.default_rng(1)
+    return {"rays": G.pack_rays(ro, rd, near, far).numpy(),
+            "projs": (rng.uniform(size=(4, 8, 8)) * 0.1 + 0.01).astype(np.float32),
+            "mask": np.ones((4, 8, 8), np.float32),
+            "pools": np.broadcast_to(np.arange(64, dtype=np.int32), (4, 64)).copy(),
+            "pool_counts": np.full((4,), 64, np.int32)}
+
+
+def epoch_runs(tmp_path, device, n_batch: int = 1, steps: int = 4):
+    """:func:`smoke_cfg` at ``n_batch`` views a step with a StepLR period
+    of one epoch, ``steps`` steps from two before the first epoch's end (so
+    the rate falls tenfold at the third), by three trainers from one seed:
+    a mesh of one's ``train_steps`` (the sharded epoch function, on a
+    one-rank group the trainer makes and closes), the same mesh's eager
+    ``train_step`` loop, and the plain trainer's ``train_steps``.  Returns
+    ``{"mesh"|"mesh_eager"|"plain": (losses, parameters, the epoch
+    function's graph or None, the rates of the steps)}``."""
+    runs = {}
+    for name, par in (("mesh", MESH1), ("mesh_eager", MESH1), ("plain", {})):
+        workdir = osp.join(str(tmp_path), name)
+        cfg = smoke_cfg(workdir, **par)
+        cfg["train"].update(n_batch=n_batch, lrate_step=1)
+        cfg["log"].update(i_eval=0, i_save=0)
+        tr = ttrainer.Trainer(cfg, workdir=workdir, device=device)
+        try:
+            assert (tr.mesh is not None) == (name != "plain")
+            tr.global_step = start = tr.steps_per_epoch - 2
+            order = np.concatenate([tr._view_order(0), tr._view_order(1)])[start:start + steps]
+            if name == "mesh_eager":
+                losses = torch.stack([tr.train_step(v) for v in order])
+            else:
+                losses = tr.train_steps(order)
+            runs[name] = (losses.cpu(), [p.detach().cpu().clone() for p in tr._parameters()],
+                          tr._epoch_fn.graphed.graph,
+                          [tr.schedule(start + i) for i in range(steps)])
+        finally:
+            tr.close()
+    return runs
+
+
 def tiny_field(params):
     field = ttrainer.build_model(with_defaults(tiny_cfg()))
     field.load_state_dict(params_from_jax(params))
@@ -213,6 +266,60 @@ def job_epoch(inputs, rank, world):
     return out
 
 
+def param_checksum(module) -> list:
+    """Each parameter tensor's sum and sum of squares, in f64."""
+    return [float(x) for p in module.parameters()
+            for x in (p.detach().double().sum(), p.detach().double().square().sum())]
+
+
+def job_sharded_epochs(inputs, rank, world):
+    """``make_sharded_epoch_fn`` on the tiny dataset over 3 steps that cross
+    a StepLR boundary (2 steps an epoch, the rate falls tenfold at the
+    third): with data=2, each rank's losses and parameter checksum; with
+    sample=2 and ``raw_noise_std`` 0.5, the same and every noise draw of the
+    noise generator, with ``fold_generator`` made to raise once the
+    function is built (the steps build no generator)."""
+    arrays = {k: torch.tensor(v) for k, v in inputs["arrays"].items()}
+    order = [[0], [1], [2]]
+    out = {}
+    for name, layout, noise_std in (("data2", (2, 1), 0.0), ("sample2", (1, 2), 0.5)):
+        mesh = make_mesh(MeshSpec(*layout), "cpu")
+        cfg = with_defaults(tiny_cfg())
+        cfg["encoder"]["log2_hashmap_size"] = 14
+        cfg["train"]["lrate_step"] = 1
+        cfg["render"]["raw_noise_std"] = noise_std
+        field = ttrainer.build_model(cfg, torch.Generator().manual_seed(1))
+        fn = pstep.make_sharded_epoch_fn(
+            cfg, field, toptim.make_optimizer(cfg, field.parameters()), mesh, 2,
+            torch.Generator().manual_seed(5), n_rays=N_RAYS, n_batch=1, use_mask=False)
+        noise_gen = fn.step.noise_generator
+        draws, fold, randn = [], pstep.fold_generator, torch.randn
+
+        def no_fold(*a, **kw):
+            raise AssertionError("a step built a generator")
+
+        def spy(*a, generator=None, **kw):
+            x = randn(*a, generator=generator, **kw)
+            if generator is not None and generator is noise_gen:
+                draws.append(x.numpy().copy())
+            return x
+
+        pstep.fold_generator, torch.randn = no_fold, spy
+        try:
+            losses = fn(arrays, order, 0).numpy()
+        finally:
+            pstep.fold_generator, torch.randn = fold, randn
+        refolded = None
+        if noise_gen is not None:   # a restore folds it again from the draws' state
+            fn.refold_noise()
+            refolded = torch.equal(noise_gen.get_state(), fold(
+                fn.generator, mesh.get_local_rank("sample")).get_state())
+        out[name] = {"losses": losses, "checksum": param_checksum(field),
+                     "noise": draws, "noise_generator": noise_gen is not None,
+                     "refolded": refolded, "graph": fn.graphed.graph is not None}
+    return out
+
+
 def job_checks(inputs, rank, world):
     """The mesh's and the step body's refusals, and ``local_batch_size``."""
     data2, sample2 = make_mesh(MeshSpec(2, 1), "cpu"), make_mesh(MeshSpec(1, 2), "cpu")
@@ -274,6 +381,7 @@ JOBS = {
     2: (job_losses, job_sample_split, job_steps, job_epoch, job_checks),
     4: (job_losses, job_sample_split, job_steps, job_layout),
     "trainer": (job_trainer,),
+    "epochs": (job_sharded_epochs,),
 }
 
 

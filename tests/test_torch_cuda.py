@@ -817,6 +817,83 @@ def test_force_mesh_matches_plain_trainer_on_card(dev, tmp_path, monkeypatch):
         assert torch.equal(a, b)
 
 
+def _mesh_fixtures(monkeypatch):
+    """``_parallel_ranks`` (the trainers' configs), with the trainer's
+    logger JSONL-only and the one-rank group's timeout short."""
+    import functools
+
+    import _parallel_ranks as R
+
+    from neuralvolumetricreconstructionformedicalimages_torch.parallel import mesh as tmesh
+    from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
+    from neuralvolumetricreconstructionformedicalimages_torch.utils.logging import (
+        ExperimentLogger)
+
+    monkeypatch.setattr(T, "ExperimentLogger",
+                        functools.partial(ExperimentLogger, enable_tensorboard=False))
+    monkeypatch.setattr(tmesh, "DEFAULT_TIMEOUT_S", R.GROUP_TIMEOUT_S)
+    return R
+
+
+def test_graphed_mesh_of_one_equals_eager_and_plain(dev, tmp_path, monkeypatch):
+    """A mesh of one on a one-rank NCCL group: ``train_steps`` captures the
+    sharded step once and replays it; over 6 steps at two views a step that
+    cross a StepLR boundary its losses and parameters are ``torch.equal``
+    to the same mesh's eager ``train_step`` loop and to the plain graphed
+    trainer, and every step launched the main path's kernels and one
+    gradient all-reduce."""
+    import torch.distributed as dist
+
+    R = _mesh_fixtures(monkeypatch)
+    _build.reset_launches()
+    runs = R.epoch_runs(tmp_path, dev, n_batch=2, steps=6)
+    assert not dist.is_initialized()
+    assert runs["mesh"][2] is not None and runs["plain"][2] is not None
+    assert runs["mesh_eager"][2] is None
+    rates = runs["mesh"][3]
+    assert rates[1] > rates[2]
+    for name in ("mesh_eager", "plain"):
+        assert torch.equal(runs["mesh"][0], runs[name][0]), (name, runs)
+        for a, b in zip(runs["mesh"][1], runs[name][1]):
+            assert torch.equal(a, b), name
+    launches = dict(_build.LAUNCHES)
+    assert launches["all_reduce_grads"] == 12          # the two mesh runs
+    for kname, every_step in _GRAPH_PATHS["sorted"][1].items():
+        assert launches.get(kname, 0) == (18 if every_step else 0), (kname, launches)
+
+
+def test_graphed_mesh_of_one_resume_captures_again(dev, tmp_path, monkeypatch):
+    """A mesh of one trains two graphed epochs and checkpoints the second;
+    the next epoch's replays make no host sync.  Restoring that checkpoint
+    replaces Adam's tensors and the rate, so the same epoch again captures
+    a new graph, and its losses are ``torch.equal`` to the replays'."""
+    from neuralvolumetricreconstructionformedicalimages_torch.train import trainer as T
+
+    R = _mesh_fixtures(monkeypatch)
+    cfg = R.smoke_cfg(str(tmp_path), **R.MESH1)
+    cfg["train"]["n_batch"] = 2
+    cfg["log"].update(i_eval=0, i_save=1)
+    tr = T.Trainer(cfg, workdir=str(tmp_path), device=dev)
+    try:
+        tr.start()                                   # epochs 0 and 1; saves epoch 1
+        graph = tr._epoch_fn.graphed.graph
+        assert graph is not None
+        order = torch.as_tensor(tr._view_order(2), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            first = tr.train_steps(order)             # replays only
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert tr._epoch_fn.graphed.graph is graph
+        tr.restore()
+        again = tr.train_steps(order)
+        assert tr._epoch_fn.graphed.graph is not graph
+    finally:
+        tr.close()
+    assert torch.equal(first, again), (first, again)
+
+
 def test_graphed_steps_at_8192_rays_equal_eager_steps(dev, monkeypatch):
     """The batch sweep's largest step at full width (the chest_50 model,
     8,192 rays x 192 samples: 1,572,864 points a level through the main

@@ -438,11 +438,13 @@ def test_shard_overhead_tiny():
     assert rec["plain"]["n_params"] == n
     assert rec["payload_mib"] * 2 ** 20 == n * 4
     figures = [rec["plain"]["ms_per_step"], rec["mesh1"]["ms_per_step"],
+               rec["mesh1_eager"]["ms_per_step"],
                rec["allreduce_1rank_ms"], rec["allreduce_2rank_gloo_ms"]]
     assert np.isfinite(figures).all() and min(figures) > 0
-    assert rec["backend_1rank"] == "gloo"
+    assert rec["backend_1rank"] == "gloo" and not rec["mesh1_graphed"]
     text = so.report(rec, "CPU")
     assert "No link rate is quoted" in text and f"{n:,} f32 parameters" in text
+    assert "mesh of one, eager under gloo" in text
 
 
 def test_scaling_sweep_tiny():
