@@ -45,7 +45,7 @@ ENTRIES: Dict[str, Tuple[str, list]] = {
     "nvr_span_gather_sorted": ("span_gather", [_P] * 4 + [_I] * 5 + [_L, _L, _P]),
     "nvr_span_gather_table": ("span_gather", [_P] * 5 + [_I] * 5 + [_L, _L, _P]),
     "nvr_bucket_grad_matmul": ("bucket_matmul", [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P]),
-    "nvr_scatter_level": ("scatter_level", [_P] * 3 + [_I, _L, _L, _P]),
+    "nvr_scatter_level": ("scatter_level", [_P] * 4 + [_I, _L, _L, _L, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -14,8 +14,10 @@ the span gather's table mode reads the values of the rolled mode through
 the same arithmetic (bit-equal to it and to its plain version);
 the bucket sum is bitwise reproducible run to run, and equals the plain
 version bit for bit (both sum every run in stream order from the same f32
-products); the scatter's atomics add in no fixed order (rtol/atol 1e-5 on
-normal payloads, bit-equal on integer-valued ones, which sum exactly).
+products); the scatter adds each row's updates in stream order, as
+``index_add_`` does on the CPU, so it is held ``torch.equal`` to the plain
+version of a CPU copy on any payload (on the card ``index_add_`` adds with
+atomics, in no fixed order).
 """
 
 import dataclasses
@@ -158,22 +160,113 @@ def test_scatter_level_kernel(dev, payload, C_):
     n0 = _build.LAUNCHES["scatter_level"]
     out = sl.scatter_level(idx, pay, S_)
     assert _build.LAUNCHES["scatter_level"] == n0 + 1
-    ref = sl.scatter_level_plain(idx, pay, S_)
-    if payload == "normal":
-        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-    else:
-        assert torch.equal(out, ref)
-        assert torch.equal(out.cpu(), sl.scatter_level(idx.cpu(), pay.cpu(), S_))
+    assert torch.equal(out.cpu(), _in_order(idx, pay, S_))
+    assert torch.equal(out.cpu(), sl.scatter_level(idx.cpu(), pay.cpu(), S_))
+
+
+def _in_order(idx, pay, S_):
+    """The in-order sum: the plain version on a CPU copy."""
+    return sl.scatter_level_plain(idx.cpu(), pay.cpu(), S_)
 
 
 def test_scatter_level_kernel_long_integer_column(dev):
-    """700 integer-valued updates into one row sum exactly in any order."""
+    """700 integer-valued updates into one row, among others."""
     g = _gen(dev, 13)
     idx = torch.randint(0, 4096, (5000,), generator=g, device=dev, dtype=torch.int32)
     idx[:700] = 77
     pay = torch.randint(-9, 9, (5000, 2), generator=g, device=dev).float()
-    assert torch.equal(sl.scatter_level(idx, pay, 4096),
-                       sl.scatter_level_plain(idx, pay, 4096))
+    assert torch.equal(sl.scatter_level(idx, pay, 4096).cpu(),
+                       _in_order(idx, pay, 4096))
+
+
+@pytest.mark.parametrize("placement", ["leading", "spread"])
+def test_scatter_level_kernel_long_normal_column(dev, placement):
+    """700 normal-payload updates into one row, in one run or spread over
+    the stream: the row's sum is the in-order chain of 700 f32 adds."""
+    g = _gen(dev, 14)
+    N, S_ = 50_000, 3000
+    idx = torch.randint(0, S_, (N,), generator=g, device=dev, dtype=torch.int32)
+    at = (torch.arange(700, device=dev) if placement == "leading"
+          else torch.randperm(N, generator=g, device=dev)[:700])
+    idx[at] = 1234
+    pay = torch.randn((N, 2), generator=g, device=dev)
+    out = sl.scatter_level(idx, pay, S_).cpu()
+    ref = _in_order(idx, pay, S_)
+    assert torch.equal(out, ref)
+    # the order matters here: the same adds in reverse order differ
+    back = np.zeros(2, np.float32)
+    for p in pay[at.sort().values].cpu().numpy()[::-1]:
+        back += p
+    assert not np.array_equal(ref[1234].numpy(), back)
+
+
+def test_scatter_level_kernel_bit_identical_launches(dev):
+    """Two launches on the same inputs give the same bits."""
+    g = _gen(dev, 15)
+    N, S_ = 300_000, 1 << 16
+    idx = torch.randint(0, S_, (N,), generator=g, device=dev, dtype=torch.int32)
+    pay = torch.randn((N, 2), generator=g, device=dev)
+    a = sl.scatter_level(idx, pay, S_)
+    b = sl.scatter_level(idx, pay, S_)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), _in_order(idx, pay, S_))
+
+
+@pytest.mark.parametrize("C_", [1, 2, 4])
+def test_scatter_level_kernel_many_tiles_ragged_slab(dev, C_):
+    """N over many 4096-update tiles and S not a multiple of a slab (the
+    last slab's window is cut at S)."""
+    g = _gen(dev, 16)
+    N = 37 * sl.TILE + 123
+    S_ = 5 * sl.scatter_plan(N, 1, C_).rows + 77
+    idx = torch.randint(0, S_, (N,), generator=g, device=dev, dtype=torch.int32)
+    pay = torch.randn((N, C_), generator=g, device=dev)
+    plan = sl.scatter_plan(N, S_, C_)
+    assert plan.n_slabs == 6 and plan.n_tiles == 38
+    assert torch.equal(sl.scatter_level(idx, pay, S_).cpu(), _in_order(idx, pay, S_))
+
+
+@pytest.mark.parametrize("C_", [1, 2, 4])
+def test_scatter_level_kernel_one_slab(dev, C_):
+    """Every update in one slab of a larger table: one block sums them all."""
+    g = _gen(dev, 17)
+    N, S_ = 200_000, 1 << 18
+    rows = sl.scatter_plan(N, S_, C_).rows
+    idx = torch.randint(3 * rows, 4 * rows, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pay = torch.randn((N, C_), generator=g, device=dev)
+    assert torch.equal(sl.scatter_level(idx, pay, S_).cpu(), _in_order(idx, pay, S_))
+
+
+def test_scatter_level_kernel_windows_and_wide_rows(dev):
+    """A table of 2^27 + 1 rows: slabs of several windows (blocks), and
+    rows within a slab past 2^16, staged in 64-bit words."""
+    g = _gen(dev, 18)
+    N, S_ = 20_000, (1 << 27) + 1
+    plan = sl.scatter_plan(N, S_, 1)
+    assert plan.windows > 1 and plan.word_bytes == 8
+    idx = torch.randint(0, S_, (N,), generator=g, device=dev, dtype=torch.int32)
+    idx[:300] = S_ - 1                             # the last row, ragged slab
+    idx[300:600] = 70_000                          # past 2^16 in slab 0
+    pay = torch.randn((N, 1), generator=g, device=dev)
+    assert torch.equal(sl.scatter_level(idx, pay, S_).cpu(), _in_order(idx, pay, S_))
+
+
+def test_scatter_level_kernel_refuses_a_short_workspace(dev):
+    """The C entry computes the plan's workspace itself and refuses one
+    byte less (so the Python plan and the kernel agree)."""
+    N, S_, C_ = 5000, 3000, 2
+    plan = sl.scatter_plan(N, S_, C_)
+    idx = torch.zeros(N, dtype=torch.int32, device=dev)
+    pay = torch.zeros((N, C_), device=dev)
+    out = torch.empty((S_, C_), device=dev)
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
+    with pytest.raises(RuntimeError, match="scatter_level.cu failed"):
+        _build.launch("nvr_scatter_level", dev, idx.data_ptr(), pay.data_ptr(),
+                      out.data_ptr(), ws.data_ptr(), C_, N, S_, plan.ws_bytes - 1)
+    _build.launch("nvr_scatter_level", dev, idx.data_ptr(), pay.data_ptr(),
+                  out.data_ptr(), ws.data_ptr(), C_, N, S_, plan.ws_bytes)
+    assert torch.equal(out.cpu(), torch.zeros((S_, C_)))
 
 
 @pytest.mark.parametrize("path", ["coherent", "xor", "take"])
@@ -497,8 +590,8 @@ def test_span_gather_table_mode_empty_stream(dev, packed):
 @pytest.mark.parametrize("N", [0, 1, 3, 4, 5, 1027])
 def test_scatter_level_kernel_short_and_unaligned(dev, N, C_, placement):
     """Short streams (none, one, a partial block) and payloads and indices
-    one row past a 16-byte boundary: bit-equal on integer payloads,
-    rtol/atol 1e-5 on normal ones."""
+    one row past a 16-byte boundary: bit-equal to the in-order sum on
+    integer and normal payloads."""
     g = _gen(dev, 45)
     S_, shift = 64, (1 if placement == "offset_one_row" else 0)
     idx_buf = torch.randint(0, S_, (N + 1,), generator=g, device=dev,
@@ -511,24 +604,20 @@ def test_scatter_level_kernel_short_and_unaligned(dev, N, C_, placement):
         if N:
             assert (pay.data_ptr() % 16 == 0) == (shift == 0 or C_ == 4)
         out = sl.scatter_level(idx, pay, S_)
-        ref = sl.scatter_level_plain(idx, pay, S_)
-        if buf is ipay_buf:
-            assert torch.equal(out, ref)
-        else:
-            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        assert torch.equal(out.cpu(), _in_order(idx, pay, S_))
 
 
 def test_scatter_level_kernel_skips_out_of_range(dev):
     """Indices outside [0, S) are skipped, in a stream that is not a
-    multiple of the 256-thread block."""
+    multiple of a warp."""
     g = _gen(dev, 46)
     idx = torch.randint(0, 256, (1027,), generator=g, device=dev, dtype=torch.int32)
     idx[::5] = -1
     idx[1::7] = 256
     pay = torch.randint(-9, 9, (1027, 2), generator=g, device=dev).float()
     keep = (idx >= 0) & (idx < 256)
-    assert torch.equal(sl.scatter_level(idx, pay, 256),
-                       sl.scatter_level_plain(idx[keep], pay[keep], 256))
+    assert torch.equal(sl.scatter_level(idx, pay, 256).cpu(),
+                       _in_order(idx[keep], pay[keep], 256))
 
 
 def test_launch_path_raises_on_kernel_error(dev):
@@ -537,10 +626,11 @@ def test_launch_path_raises_on_kernel_error(dev):
     idx = torch.zeros(8, dtype=torch.int32, device=dev)
     pay = torch.zeros((8, 3), device=dev)
     out = torch.empty((16, 3), device=dev)
+    ws = torch.empty(1 << 12, dtype=torch.uint8, device=dev)
     for _ in range(2):   # C = 3 is refused by the C entry itself
         with pytest.raises(RuntimeError, match="scatter_level.cu failed"):
             _build.launch("nvr_scatter_level", dev, idx.data_ptr(), pay.data_ptr(),
-                          out.data_ptr(), 3, 8, 16)
+                          out.data_ptr(), ws.data_ptr(), 3, 8, 16, 1 << 12)
     assert "nvr_scatter_level" in _build._entries
     keys = torch.zeros((L, 4), dtype=torch.int32, device=dev)
     frac = torch.zeros((L, 3, 4), device=dev)

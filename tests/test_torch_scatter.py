@@ -5,10 +5,11 @@ serial scatter itself (interpret mode, the script's constants shrunk by
 ``scripts/microbench_encoder_torch.py`` end to end on the CPU at a small
 shape, against the JAX script's ``fwd_take`` on the same data.
 
-Tolerances: the Pallas loop and ``index_add_`` add the same f32 values
-into each row, possibly in another order: atol 1e-5 for normal payloads of
-about 16 updates per row; integer-valued payloads sum exactly in any
-order, so there the results are equal.
+Tolerances: none.  The Pallas loop adds each row's updates one at a time
+in update order, as ``np.add.at`` and the CPU's ``index_add_`` do, so the
+plain version equals both bit for bit on any payload.  ``scatter_plan``
+(the CUDA kernel's launch and workspace sizes) is checked here too; the
+kernel itself runs only on the card (``tests/test_torch_cuda.py``).
 """
 
 import functools
@@ -62,10 +63,7 @@ def test_scatter_level_matches_pallas_serial_scatter(jax_bench, payload):
     j = np.asarray(jax_bench.pallas_scatter_level(jnp.asarray(idx), jnp.asarray(pay)))
     t = tsl.scatter_level(torch.as_tensor(idx), torch.as_tensor(pay), S)
     assert t.shape == (S, 2) and t.dtype == torch.float32
-    if payload == "normal":
-        np.testing.assert_allclose(t.numpy(), j, atol=1e-5)
-    else:
-        np.testing.assert_array_equal(t.numpy(), j)
+    np.testing.assert_array_equal(t.numpy(), j)
 
 
 @pytest.mark.parametrize("C", [1, 2, 4])
@@ -84,6 +82,91 @@ def test_scatter_level_plain_sums_rows(C):
     got = tsl.scatter_level(torch.as_tensor(idx), torch.as_tensor(pay), S)
     assert _build.LAUNCHES["scatter_level"] == n0  # the CPU runs no kernel
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _add_at(idx, pay, S):
+    out = np.zeros((S, pay.shape[1]), np.float32)
+    np.add.at(out, idx, pay)
+    return out
+
+
+@pytest.mark.parametrize("N", [0, 1, 1027, 1 << 16])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_plain_is_the_in_order_sum(C, N):
+    """The plain version is bit-equal to ``np.add.at`` (updates added one
+    at a time in stream order) on normal payloads, into a table whose size
+    is not a power of two."""
+    rng = np.random.default_rng(23 + N + C)
+    S = 3001
+    idx = rng.integers(0, S, N).astype(np.int32)
+    pay = rng.normal(size=(N, C)).astype(np.float32)
+    got = tsl.scatter_level_plain(torch.as_tensor(idx), torch.as_tensor(pay), S)
+    np.testing.assert_array_equal(got.numpy(), _add_at(idx, pay, S))
+
+
+@pytest.mark.parametrize("placement", ["leading", "spread"])
+def test_plain_is_the_in_order_sum_on_a_hot_row(placement):
+    """700 normal-payload updates into one row: a chain of 700 f32 adds
+    whose result depends on the order, equal to ``np.add.at``'s."""
+    rng = np.random.default_rng(24)
+    N, S = 20_000, 997
+    idx = rng.integers(0, S, N).astype(np.int32)
+    at = np.arange(700) if placement == "leading" else np.sort(rng.permutation(N)[:700])
+    idx[at] = 613
+    pay = rng.normal(size=(N, 2)).astype(np.float32)
+    got = tsl.scatter_level_plain(torch.as_tensor(idx), torch.as_tensor(pay), S).numpy()
+    np.testing.assert_array_equal(got, _add_at(idx, pay, S))
+    back = np.zeros(2, np.float32)
+    for p in pay[at][::-1]:
+        back += p
+    assert not np.array_equal(got[613], back)   # the order shows in this row
+
+
+def test_scatter_plan_without_updates():
+    plan = tsl.scatter_plan(0, 1 << 19, 2)
+    assert plan.n_tiles == 0 and plan.ws_bytes == 0
+    assert plan.n_slabs * plan.rows * plan.windows >= 1 << 19
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_scatter_plan_table_smaller_than_a_slab(C):
+    plan = tsl.scatter_plan(5000, 7, C)
+    assert plan.rows * C == tsl.SLAB_FLOATS
+    assert (plan.n_slabs, plan.windows, plan.n_tiles) == (1, 1, 2)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_scatter_plan_ragged_last_slab(C):
+    """S not a multiple of a slab: the last slab is cut at S, every row is
+    in some slab (so every output row is written)."""
+    rows = tsl.SLAB_FLOATS // C
+    plan = tsl.scatter_plan(1_572_864, 5 * rows + 77, C)
+    assert (plan.n_slabs, plan.windows) == (6, 1)
+    assert plan.n_tiles == 1_572_864 // tsl.TILE
+
+
+@pytest.mark.parametrize("N,S,C", [(1_572_864, 1 << 19, 2), (1027, 3001, 4),
+                                   (1, 1 << 26, 1), (4097, 1 << 26, 2),
+                                   (100, (1 << 27) + 1, 1)])
+def test_scatter_plan_workspace_bytes(N, S, C):
+    """Each update's staged word (its row within its slab and its place in
+    its tile, 16 bits each while a slab has at most 2^16 rows, else 32),
+    and the slab offsets of each tile, (n_slabs + 1) * n_tiles int32; at
+    most MAX_SLABS slabs, windows doubling beyond that."""
+    plan = tsl.scatter_plan(N, S, C)
+    n_tiles = -(-N // tsl.TILE)
+    assert plan.n_tiles == n_tiles
+    assert plan.n_slabs <= tsl.MAX_SLABS
+    assert plan.windows & (plan.windows - 1) == 0
+    assert plan.n_slabs == -(-S // (plan.rows * plan.windows))
+    if plan.windows > 1:
+        assert -(-S // (plan.rows * plan.windows // 2)) > tsl.MAX_SLABS
+    assert plan.word_bytes == (4 if plan.rows * plan.windows <= 1 << 16 else 8)
+    assert plan.ws_bytes == N * plan.word_bytes + (plan.n_slabs + 1) * n_tiles * 4
+    if (N, S, C) == (1_572_864, 1 << 19, 2):   # the microbenchmark's shape
+        assert (plan.n_slabs, plan.n_tiles, plan.ws_bytes) == (256, 384, 6_686_208)
+    if S == (1 << 27) + 1:                     # slabs past 2^16 rows
+        assert (plan.windows, plan.word_bytes) == (32, 8)
 
 
 def test_scatter_level_rejects_other_devices():
