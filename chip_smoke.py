@@ -347,14 +347,14 @@ def _launch_key(kernel: str):
 
 def traced(run):
     """``run()`` under ``torch.profiler``: (its result, the device ms of
-    every kernel and memset it ran, {launch-count key: kernels of
-    ``csrc/`` in the trace}) -- in a graph's replays, the kernels that
-    actually ran."""
+    every kernel and memset it ran but the range marks, {launch-count key:
+    kernels of ``csrc/`` in the trace}) -- in a graph's replays, the
+    kernels that actually ran."""
     import collections
 
     from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
         traced_device_ms)
-    out, dev_ms, kernels = traced_device_ms(run)
+    out, dev_ms, kernels, _ = traced_device_ms(run)
     counts = collections.Counter()
     for name, (_, n) in kernels.items():
         key = _launch_key(name)
@@ -1520,7 +1520,7 @@ def parallel_phase(cfg_path: str, main_losses, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
         t0 = time.perf_counter()
-        _, _, trace = traced_device_ms(tr.start)
+        _, _, trace, _ = traced_device_ms(tr.start)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 1e6
         launches = dict(_build.LAUNCHES)

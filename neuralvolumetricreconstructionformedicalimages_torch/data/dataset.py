@@ -23,6 +23,7 @@ import torch
 
 from .. import geometry as G
 from .. import native
+from ..utils.profiling import layer_range
 
 
 @dataclasses.dataclass
@@ -144,31 +145,32 @@ def gather_batch(arrays: Dict[str, torch.Tensor], views: torch.Tensor,
     ([n_batch, n_rays]) is the pool draw; by default one ``[n_batch,
     n_rays]`` uniform draw from ``generator``, which on the CPU is the
     per-view loop's draws in order.  Bit-equal to :func:`gather_view_batch`
-    view by view, concatenated.
+    view by view, concatenated.  Its work is the layer range ``batch``.
     """
-    pools = arrays["pools"]
-    n_batch = views.shape[0]
-    _, H, W = arrays["projs"].shape
-    if r is None:
-        count = arrays["pool_counts"][views].to(torch.float32)[:, None]
-        u = torch.rand((n_batch, n_rays), generator=generator, device=pools.device)
-        r = torch.minimum((u * count).long(), count.long() - 1)
-    flat_idx = pools[views[:, None], r.reshape(n_batch, n_rays).long()].long()
-    idx = (views[:, None] * (H * W) + flat_idx).reshape(-1)
-    projs = arrays["projs"].reshape(-1)[idx]
-    mask = arrays["mask"].reshape(-1)[idx]
-    if "rays" in arrays:
-        rays = arrays["rays"].reshape(-1, 8)[idx]
-    else:
-        if geo is None:
-            raise ValueError("on-the-fly ray mode needs geo/near/far passed "
-                             "to gather_batch")
-        Wd = geo.nDetector[0]
-        rows = flat_idx // Wd
-        cols = flat_idx - rows * Wd
-        ro, rd = G.rays_for_pixels(geo, arrays["angles"][views], rows, cols)
-        rays = G.pack_rays(ro.reshape(-1, 3), rd.reshape(-1, 3), near, far)
-    return {"rays": rays, "projs": projs, "mask": mask, "pix": flat_idx.reshape(-1)}
+    with layer_range("batch"):
+        pools = arrays["pools"]
+        n_batch = views.shape[0]
+        _, H, W = arrays["projs"].shape
+        if r is None:
+            count = arrays["pool_counts"][views].to(torch.float32)[:, None]
+            u = torch.rand((n_batch, n_rays), generator=generator, device=pools.device)
+            r = torch.minimum((u * count).long(), count.long() - 1)
+        flat_idx = pools[views[:, None], r.reshape(n_batch, n_rays).long()].long()
+        idx = (views[:, None] * (H * W) + flat_idx).reshape(-1)
+        projs = arrays["projs"].reshape(-1)[idx]
+        mask = arrays["mask"].reshape(-1)[idx]
+        if "rays" in arrays:
+            rays = arrays["rays"].reshape(-1, 8)[idx]
+        else:
+            if geo is None:
+                raise ValueError("on-the-fly ray mode needs geo/near/far passed "
+                                 "to gather_batch")
+            Wd = geo.nDetector[0]
+            rows = flat_idx // Wd
+            cols = flat_idx - rows * Wd
+            ro, rd = G.rays_for_pixels(geo, arrays["angles"][views], rows, cols)
+            rays = G.pack_rays(ro.reshape(-1, 3), rd.reshape(-1, 3), near, far)
+        return {"rays": rays, "projs": projs, "mask": mask, "pix": flat_idx.reshape(-1)}
 
 
 def load_pickle(path: str) -> Dict[str, Any]:

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
+from ..utils.profiling import layer_range, mark_on_grad
 from .encoders import EncoderSpec
 
 _LEAKY_SLOPE = 0.01  # torch.nn.LeakyReLU default
@@ -103,20 +104,24 @@ class DensityField(nn.Module):
                 ) -> torch.Tensor:
         params = self.encoder_params() if enc_params is None else enc_params
         h = self.encoder.apply(params, x, self.bound)
-        input_pts = h
-        bf16 = self.compute_dtype == "bfloat16"
-        n = len(self.layers)
-        for i, lin in enumerate(self.layers):
-            if i in self.skips:
-                h = torch.cat([input_pts, h], dim=-1)
-            if bf16:
-                # bf16 operands, f32 products and sums (the JAX
-                # preferred_element_type=float32 contraction)
-                h = Fn.linear(h.to(torch.bfloat16).float(),
-                              lin.weight.to(torch.bfloat16).float()) + lin.bias
-            else:
-                h = Fn.linear(h, lin.weight, lin.bias)
-            h = Fn.leaky_relu(h, _LEAKY_SLOPE) if i < n - 1 else self._act(h)
+        with layer_range("mlp"):
+            input_pts = h
+            bf16 = self.compute_dtype == "bfloat16"
+            n = len(self.layers)
+            for i, lin in enumerate(self.layers):
+                if i in self.skips:
+                    h = torch.cat([input_pts, h], dim=-1)
+                if bf16:
+                    # bf16 operands, f32 products and sums (the JAX
+                    # preferred_element_type=float32 contraction)
+                    h = Fn.linear(h.to(torch.bfloat16).float(),
+                                  lin.weight.to(torch.bfloat16).float()) + lin.bias
+                else:
+                    h = Fn.linear(h, lin.weight, lin.bias)
+                h = Fn.leaky_relu(h, _LEAKY_SLOPE) if i < n - 1 else self._act(h)
+        # the backward through the MLP starts once the output's gradient is
+        # complete, i.e. after the loss's and the renderer's
+        mark_on_grad(h, "backward.mlp")
         return h
 
 

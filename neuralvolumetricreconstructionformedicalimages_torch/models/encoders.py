@@ -27,6 +27,7 @@ from ..ops.coherent_hash import (
 )
 from ..ops.hash_encoding import HashGridSpec, hash_encode, hash_encode_fast
 from ..ops.span_gather import sorted_encode
+from ..utils.profiling import layer_range
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,35 +124,44 @@ class HashEncoderSpec(EncoderSpec):
            multiple of 2048: ``sorted_encode`` (the main path).
         5. ``fast``, size a multiple of 2048: ``coherent_encode``.
         6. Otherwise the oracle ``coherent_encode_reference``.
+
+        Layer ranges: the scaling to the unit cube closes ``sample``; path 4
+        runs ``encode.index`` to ``encode.permute``, every other path one
+        ``encode``.
         """
-        x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
-        prefix = x01.shape[:-1]
-        x01 = x01.reshape(-1, self.grid.input_dim)
+        with layer_range("sample"):
+            x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
+            prefix = x01.shape[:-1]
+            x01 = x01.reshape(-1, self.grid.input_dim)
         table = params.get("table")
         tiles = self.grid.table_size % 2048 == 0
-        if self.hash_variant == "xor":
-            if self.fast and self.backward != "take" and tiles:
-                out = hash_encode_fast(x01, table, self.grid)
+        coherent = self.hash_variant == "coherent"
+        if (coherent and "rolled" not in params and self.fast and self.backward != "take"
+                and self.forward == "sorted" and not self.input_grads and tiles):
+            # its own ranges, encode.index to encode.permute
+            out = sorted_encode(x01, table, self.grid, self._table_dtype, self.pack_sort)
+            with layer_range("encode.permute"):
+                return out.reshape(*prefix, self.output_dim)
+        with layer_range("encode"):
+            if self.hash_variant == "xor":
+                if self.fast and self.backward != "take" and tiles:
+                    out = hash_encode_fast(x01, table, self.grid)
+                else:
+                    out = hash_encode(x01, table, self.grid)
+            elif coherent:
+                if "rolled" in params:  # frozen eval params (see ``freeze``)
+                    out = coherent_encode_prebuilt(x01, params["rolled"], self.grid)
+                elif self.fast and self.backward == "take":
+                    out = coherent_encode_takevjp(x01, table, self.grid,
+                                                  self._table_dtype)
+                elif self.fast and tiles:
+                    out = coherent_encode(x01, table, self.grid, self._table_dtype)
+                else:
+                    out = coherent_encode_reference(x01, table, self.grid)
             else:
-                out = hash_encode(x01, table, self.grid)
-        elif self.hash_variant == "coherent":
-            if "rolled" in params:  # frozen eval params (see ``freeze``)
-                out = coherent_encode_prebuilt(x01, params["rolled"], self.grid)
-            elif self.fast and self.backward == "take":
-                out = coherent_encode_takevjp(x01, table, self.grid,
-                                              self._table_dtype)
-            elif (self.fast and self.forward == "sorted"
-                  and not self.input_grads and tiles):
-                out = sorted_encode(x01, table, self.grid,
-                                    self._table_dtype, self.pack_sort)
-            elif self.fast and tiles:
-                out = coherent_encode(x01, table, self.grid, self._table_dtype)
-            else:
-                out = coherent_encode_reference(x01, table, self.grid)
-        else:
-            raise NotImplementedError(
-                f"Unknown hash_variant {self.hash_variant!r}")
-        return out.reshape(*prefix, self.output_dim)
+                raise NotImplementedError(
+                    f"Unknown hash_variant {self.hash_variant!r}")
+            return out.reshape(*prefix, self.output_dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,11 +195,12 @@ class FreqEncoderSpec(EncoderSpec):
 
     def apply(self, params, x, bound: float):
         del params, bound  # stateless
-        outs = [x] if self.include_input else []
-        for freq in self.freq_bands:
-            outs.append(torch.sin(x * float(freq)))
-            outs.append(torch.cos(x * float(freq)))
-        return torch.cat(outs, dim=-1)
+        with layer_range("encode"):
+            outs = [x] if self.include_input else []
+            for freq in self.freq_bands:
+                outs.append(torch.sin(x * float(freq)))
+                outs.append(torch.cos(x * float(freq)))
+            return torch.cat(outs, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,7 +30,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("roll_kernels", "span_gather", "bucket_matmul", "scatter_level")
+SOURCES = ("roll_kernels", "span_gather", "bucket_matmul", "scatter_level", "range_mark")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,6 +46,7 @@ ENTRIES: Dict[str, Tuple[str, list]] = {
     "nvr_span_gather_table": ("span_gather", [_P] * 5 + [_I] * 5 + [_L, _L, _P]),
     "nvr_bucket_grad_matmul": ("bucket_matmul", [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P]),
     "nvr_scatter_level": ("scatter_level", [_P] * 4 + [_I, _L, _L, _L, _P]),
+    "nvr_range_mark": ("range_mark", [_P] + [_I] * 5 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

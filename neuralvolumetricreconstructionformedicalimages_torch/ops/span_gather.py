@@ -37,6 +37,7 @@ import torch
 from . import _build
 from .bucket_matmul import bucket_grad_matmul
 from .coherent_hash import _offsets_on, base_and_frac_t, corner_bits, corner_offsets
+from ..utils.profiling import layer_range, range_mark
 from .hash_encoding import HashGridSpec
 from .roll_kernels import (
     _PAD,
@@ -319,27 +320,37 @@ def _unpack_feats(pk: torch.Tensor) -> torch.Tensor:
 # Full sorted-forward encode with the bucket backward
 # ---------------------------------------------------------------------------
 
-def _encode_sorted(base_t, frac_t, gather, input_dim: int, n_channels: int,
-                   pack: bool):
+def _encode_sorted(base_t, pos, gather, n_channels: int):
     """Point-order features [B, L*C] plus what the backward reuses: the
-    sorted keys, the permutation and the sorted fracs (packed int32 [L, B]
-    when ``pack``, else f32 [L, D, B]).  ``gather(sorted_keys,
-    sorted_frac)`` is the span gather of one table layout."""
+    sorted keys, the permutation and the sorted positions (``pos`` packed
+    by :func:`pack_frac_t`, int32 [L, B], or f32 [L, D, B]).
+    ``gather(sorted_keys, sorted_frac)`` is the span gather of one table
+    layout.  Layer ranges ``encode.sort``, ``encode.permute`` (positions to
+    sorted order), ``encode.gather``, ``encode.permute`` (features back to
+    point order)."""
     L, B = base_t.shape
-    D, C = int(input_dim), int(n_channels)
-    sk, perm = torch.sort(base_t, dim=-1, stable=True)           # int32, int64
-    if pack and D == 3 and C == 2:
-        spf = torch.gather(pack_frac_t(frac_t), 1, perm)         # [L, B] int32
-        feats_sorted = gather(sk, spf[:, None, :])               # [L, C, B]
-        packed_sorted = _pack_feats(feats_sorted)                # [L, B]
-        packed = torch.empty_like(packed_sorted).scatter_(1, perm, packed_sorted)
-        out = _unpack_feats(packed.t())                          # [B, L, 2]
-        return out.reshape(B, L * C), (sk, perm, spf)
-    sfr = torch.gather(frac_t, 2, perm[:, None, :].expand(L, D, B))
-    feats_sorted = gather(sk, sfr)
-    feats = torch.empty_like(feats_sorted).scatter_(
-        2, perm[:, None, :].expand(L, C, B), feats_sorted)
-    return feats.permute(2, 0, 1).reshape(B, L * C), (sk, perm, sfr)
+    C = int(n_channels)
+    with layer_range("encode.sort"):
+        sk, perm = torch.sort(base_t, dim=-1, stable=True)       # int32, int64
+    if pos.dtype == torch.int32:
+        with layer_range("encode.permute"):
+            spf = torch.gather(pos, 1, perm)                      # [L, B] int32
+        with layer_range("encode.gather"):
+            feats_sorted = gather(sk, spf[:, None, :])           # [L, C, B]
+        with layer_range("encode.permute"):
+            packed_sorted = _pack_feats(feats_sorted)            # [L, B]
+            packed = torch.empty_like(packed_sorted).scatter_(1, perm, packed_sorted)
+            out = _unpack_feats(packed.t())                      # [B, L, 2]
+            return out.reshape(B, L * C), (sk, perm, spf)
+    D = pos.shape[1]
+    with layer_range("encode.permute"):
+        sfr = torch.gather(pos, 2, perm[:, None, :].expand(L, D, B))
+    with layer_range("encode.gather"):
+        feats_sorted = gather(sk, sfr)
+    with layer_range("encode.permute"):
+        feats = torch.empty_like(feats_sorted).scatter_(
+            2, perm[:, None, :].expand(L, C, B), feats_sorted)
+        return feats.permute(2, 0, 1).reshape(B, L * C), (sk, perm, sfr)
 
 
 def sorted_encode_features(base_t: torch.Tensor, frac_t: torch.Tensor,
@@ -356,26 +367,29 @@ def sorted_encode_features(base_t: torch.Tensor, frac_t: torch.Tensor,
     bf16.  ``pack=False`` keeps everything f32.
     """
     D = int(input_dim)
+    C = rolled_fm.shape[1] >> D
 
     def gather(sk, sfrac):
         return span_gather_sorted(sk, sfrac, rolled_fm, input_dim=D)
 
-    return _encode_sorted(base_t, frac_t, gather, D,
-                          rolled_fm.shape[1] >> D, pack)[0]
+    with layer_range("encode.index"):
+        pos = pack_frac_t(frac_t) if pack and D == 3 and C == 2 else frac_t
+    return _encode_sorted(base_t, pos, gather, C)[0]
 
 
 class _SortedEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x01, table, spec, table_dtype, pack):
-        tab = table.detach()
-        base_t, frac_t = base_and_frac_t(spec, x01.detach())
-        pack = bool(pack) and spec.input_dim == 3 and spec.level_dim == 2
+        with layer_range("encode.index"):
+            tab = table.detach()
+            base_t, frac_t = base_and_frac_t(spec, x01.detach())
+            pack = bool(pack) and spec.input_dim == 3 and spec.level_dim == 2
+            pos = pack_frac_t(frac_t) if pack else frac_t
 
         def gather(sk, sfrac):
             return span_gather_sorted_table(sk, sfrac, tab, spec, table_dtype)
 
-        out, (sk, perm, sfrac) = _encode_sorted(
-            base_t, frac_t, gather, spec.input_dim, table.shape[2], pack)
+        out, (sk, perm, sfrac) = _encode_sorted(base_t, pos, gather, table.shape[2])
         ctx.save_for_backward(sk, perm, sfrac)
         ctx.spec = spec
         ctx.pack = pack
@@ -384,6 +398,7 @@ class _SortedEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        range_mark("backward.encode.permute")
         sk, perm, sfrac = ctx.saved_tensors
         spec = ctx.spec
         L, B = sk.shape
@@ -393,9 +408,11 @@ class _SortedEncode(torch.autograd.Function):
         sf = unpack_frac_t(sfrac) if ctx.pack else sfrac
         gt = g.reshape(B, L, C).permute(1, 2, 0).to(torch.float32)  # [L, C, B]
         sg = torch.gather(gt, 2, perm[:, None, :].expand(L, C, B))
+        range_mark("backward.encode.bucket")
         grad_rolled = bucket_grad_matmul(
             sk, sf, sg, table_size=spec.table_size, input_dim=spec.input_dim,
             extend_cols=_PAD)                                    # [L, K*C, S+pad]
+        range_mark("backward.encode.unroll")
         grad_table = unroll_reduce_fm(grad_rolled, spec, C)      # [L, S, C]
         return None, grad_table, None, None, None
 

@@ -305,12 +305,13 @@ def make_sharded_epoch_fn(cfg: Dict[str, Any], field: DensityField, optimizer,
     is captured as a CUDA graph with the draw and noise generators
     registered, and every further step is a copy of its views into the
     graph's buffer and a replay.  A capture that fails raises.  Under gloo,
-    and on the CPU, the steps run eagerly, one after another.
+    and on the CPU, the steps run eagerly, one after another.  The graph
+    has no marked twin: its layer ranges are host ranges only.
     """
     body = _make_shard_body(cfg, field, optimizer, n_rays, n_batch, use_mask, mesh,
                             draw_generator(generator, mesh), field_fine=field_fine,
                             geo=geo, near=near, far=far)
-    graphed = _GraphedStep(body, optimizer, body.generators)
+    graphed = _GraphedStep(body, optimizer, body.generators, twin=False)
     fn = epoch_loop(body, graphed, optimizer, make_lr_schedule(cfg, steps_per_epoch),
                     graphs_collectives)
     fn.generator, fn.refold_noise = body.generator, body.refold_noise

@@ -21,6 +21,7 @@ import torch
 from .models.density_field import DensityField
 from .ops.integration import raw2outputs
 from .ops.sampling import sample_pdf, stratified_z_vals
+from .utils.profiling import layer_range
 
 
 def tv_on_points(pts: torch.Tensor) -> torch.Tensor:
@@ -52,36 +53,42 @@ def render_rays(
     """Render a batch of rays [n_rays, 8] -> dict with 'acc' [n_rays] etc.
 
     ``enc_params`` / ``enc_params_fine``: frozen encoder params
-    (``DensityField.freeze``) for the eval path.
+    (``DensityField.freeze``) for the eval path.  Layer ranges: ``sample``
+    (depths and points), the field's own, ``render`` (integration, TV).
     """
-    rays_o, rays_d = rays[..., :3], rays[..., 3:6]
-    near, far = rays[..., 6:7], rays[..., 7:8]
-
-    do_perturb = perturb and (generator is not None or t_rand is not None)
-    z_vals = stratified_z_vals(near, far, n_samples, do_perturb,
-                               generator=generator, t_rand=t_rand)
-    bound = field.bound - 1e-6
-    pts = _points(rays_o, rays_d, z_vals, bound)
+    with layer_range("sample"):
+        rays_o, rays_d = rays[..., :3], rays[..., 3:6]
+        near, far = rays[..., 6:7], rays[..., 7:8]
+        do_perturb = perturb and (generator is not None or t_rand is not None)
+        z_vals = stratified_z_vals(near, far, n_samples, do_perturb,
+                                   generator=generator, t_rand=t_rand)
+        bound = field.bound - 1e-6
+        pts = _points(rays_o, rays_d, z_vals, bound)
     raw = field(pts, enc_params)
-    acc, weights = raw2outputs(raw, z_vals, rays_d, raw_noise_std, generator, noise)
 
     ret: Dict[str, torch.Tensor] = {}
     if n_fine > 0 and field_fine is not None:
+        with layer_range("render"):
+            acc, weights = raw2outputs(raw, z_vals, rays_d, raw_noise_std, generator,
+                                       noise)
         ret.update(acc0=acc, weights0=weights, pts0=pts)
-        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_samples = sample_pdf(z_mid, weights[..., 1:-1], n_fine,
-                               det=not perturb, generator=generator, u=u)
-        z_samples = z_samples.detach()
-        z_vals, _ = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1)
-        pts = _points(rays_o, rays_d, z_vals, bound)
+        with layer_range("sample"):
+            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_samples = sample_pdf(z_mid, weights[..., 1:-1], n_fine,
+                                   det=not perturb, generator=generator, u=u)
+            z_samples = z_samples.detach()
+            z_vals, _ = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1)
+            pts = _points(rays_o, rays_d, z_vals, bound)
         raw = field_fine(pts, enc_params_fine)
-        acc, _ = raw2outputs(raw, z_vals, rays_d, raw_noise_std, generator)
+        noise = None    # the fine pass draws its own
 
-    # tv_loss: TV on the sample POSITIONS (parameter-independent, zero
-    # gradient; kept for parity).  tv_density: TV of the predicted
-    # densities along each ray, the gradient-active "tvd" regulariser.
-    ret.update(acc=acc, pts=pts, tv_loss=0.1 * tv_on_points(pts),
-               tv_density=torch.mean(torch.abs(raw[..., 1:, 0] - raw[..., :-1, 0])))
+    with layer_range("render"):
+        acc, _ = raw2outputs(raw, z_vals, rays_d, raw_noise_std, generator, noise)
+        # tv_loss: TV on the sample POSITIONS (parameter-independent, zero
+        # gradient; kept for parity).  tv_density: TV of the predicted
+        # densities along each ray, the gradient-active "tvd" regulariser.
+        ret.update(acc=acc, pts=pts, tv_loss=0.1 * tv_on_points(pts),
+                   tv_density=torch.mean(torch.abs(raw[..., 1:, 0] - raw[..., :-1, 0])))
     return ret
 
 

@@ -26,6 +26,7 @@ a card it raises.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import glob
 import json
@@ -50,7 +51,8 @@ from ..models import DensityField, get_encoder, get_network
 from ..ops import _build
 from ..render import query_field, render_image, render_rays
 from ..utils.logging import ExperimentLogger
-from ..utils.profiling import StepTimer
+from ..utils import profiling
+from ..utils.profiling import StepTimer, layer_range, range_mark
 from .optim import make_lr_schedule, make_optimizer, set_lr
 
 
@@ -113,18 +115,19 @@ def make_loss_fn(cfg: Dict[str, Any], use_mask: bool, group=None):
             batch["rays"], field, n_samples=n_samples, n_fine=n_fine,
             perturb=perturb, raw_noise_std=raw_noise_std, generator=generator,
             field_fine=field_fine, t_rand=t_rand, noise=noise)
-        mask = batch["mask"] if use_mask else None
-        aux = {"tv_loss": out["tv_loss"], "tv_density": out["tv_density"]}
-        if group is not None and uses_tv:
-            aux = {"tv_loss": global_sum(aux["tv_loss"], group),
-                   "tv_density": global_sum(aux["tv_density"], group)
-                   / dist.get_world_size(group)}
-        loss, _ = loss_calc(out["acc"], batch["projs"], mask, aux)
-        if n_fine > 0 and field_fine is not None:
-            # regularizers count once, on the fine loss
-            loss0, _ = loss_calc(out["acc0"], batch["projs"], mask)
-            loss = loss + loss0
-        return loss
+        with layer_range("loss"):
+            mask = batch["mask"] if use_mask else None
+            aux = {"tv_loss": out["tv_loss"], "tv_density": out["tv_density"]}
+            if group is not None and uses_tv:
+                aux = {"tv_loss": global_sum(aux["tv_loss"], group),
+                       "tv_density": global_sum(aux["tv_density"], group)
+                       / dist.get_world_size(group)}
+            loss, _ = loss_calc(out["acc"], batch["projs"], mask, aux)
+            if n_fine > 0 and field_fine is not None:
+                # regularizers count once, on the fine loss
+                loss0, _ = loss_calc(out["acc0"], batch["projs"], mask)
+                loss = loss + loss0
+            return loss
 
     return loss_fn
 
@@ -149,7 +152,9 @@ def make_train_step(cfg: Dict[str, Any], field: DensityField, optimizer, *,
     draws come from ``generator`` unless fed (:data:`DRAWS`).  Every op
     runs on the device without a host sync, so that the step can be
     captured in a CUDA graph; ``geo``/``near``/``far`` enable the
-    on-the-fly ray mode (see data/dataset.py).
+    on-the-fly ray mode (see data/dataset.py).  Its layer ranges
+    (``utils/profiling.py``) tile it: ``batch``, ``sample``, the encoder's,
+    ``mlp``, ``render``, ``loss``, the backward's marks, ``optim``.
     """
     loss_fn = make_loss_fn(cfg, use_mask)
 
@@ -162,9 +167,12 @@ def make_train_step(cfg: Dict[str, Any], field: DensityField, optimizer, *,
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(field, field_fine, batch, generator, t_rand=t_rand,
                        noise=noise)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with layer_range("backward"):
+            range_mark("backward.render")
+            loss.backward()
+        with layer_range("optim"):
+            optimizer.step()
+            return loss.detach()
 
     return step
 
@@ -180,12 +188,27 @@ class _GraphedStep:
     so that every replay draws on from where the last left off.  Every
     later call copies its inputs into the graph's buffers and replays it.
 
+    With ``twin`` (the default), a second graph is captured right after the
+    first, with no eager step of its own: the same step with its range
+    marks (``utils/profiling.py``), the marked twin.  A call replays the
+    twin in place of the plain graph while a profiler runs or inside a
+    ``profiling.ranges()`` block (the plain graph carries no mark), and
+    zeroes the range sums when it switches from plain to marked replays.
+    The twin registers the same generators, so both draw from one sequence,
+    and it shares the plain graph's memory pool, so the peak stays the
+    same.  Sharing is safe because a replay's outputs are consumed before
+    the other graph replays: a call returns the loss buffer of the graph it
+    replayed, which the caller copies out in stream order, and the
+    gradients live only within a replay, where its own Adam reads them.
+    Nothing outside the step may read a parameter's ``.grad`` between
+    replays: it holds the buffer of the graph captured last.
+
     A capture adds nothing to ``_build.LAUNCHES``; each replay adds the
-    launches the capture recorded.  A capture that fails raises: nothing
-    drops back to eager steps.
+    launches its graph's capture recorded.  A capture that fails raises:
+    nothing drops back to eager steps.
     """
 
-    def __init__(self, step: Callable, optimizer, generators):
+    def __init__(self, step: Callable, optimizer, generators, twin: bool = True):
         self.step = step
         self.optimizer = optimizer
         if not isinstance(generators, (list, tuple)):
@@ -197,6 +220,11 @@ class _GraphedStep:
         self.static: Dict[str, torch.Tensor] = {}
         self.loss = None
         self.launches: Counter = Counter()
+        self.with_twin = twin
+        self.twin = None
+        self.twin_loss = None
+        self.twin_launches: Counter = Counter()
+        self.replayed_twin = False
 
     def _key(self, arrays, inputs) -> tuple:
         opt = self.optimizer
@@ -208,18 +236,32 @@ class _GraphedStep:
 
     def __call__(self, arrays, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The loss of one step on ``inputs`` (``views`` and any fed
-        draws); the graph's own loss buffer after a replay."""
-        if self.key is not None and self._key(arrays, inputs) == self.key:
-            for k, v in inputs.items():
-                self.static[k].copy_(v)
-            self.graph.replay()
-            _build.LAUNCHES.update(self.launches)
-            return self.loss
-        return self._capture(arrays, inputs)
+        draws); the replayed graph's own loss buffer after a replay."""
+        with layer_range("step.feed"):
+            ready = self.key is not None and self._key(arrays, inputs) == self.key
+            if ready:
+                for k, v in inputs.items():
+                    self.static[k].copy_(v)
+        if not ready:
+            return self._capture(arrays, inputs)
+        marked = self.with_twin and profiling.ranges_on()
+        with layer_range("step.replay"):
+            if marked:
+                if not self.replayed_twin:
+                    profiling.reset_ranges(self.static["views"].device)
+                self.twin.replay()
+            else:
+                self.graph.replay()
+        self.replayed_twin = marked
+        _build.LAUNCHES.update(self.twin_launches if marked else self.launches)
+        return self.twin_loss if marked else self.loss
 
     def _capture(self, arrays, inputs) -> torch.Tensor:
         dev = inputs["views"].device
-        self.key = self.graph = self.loss = None   # free the old graph's pool
+        # free the old graphs' pool
+        self.key = self.graph = self.loss = self.twin = self.twin_loss = None
+        if self.with_twin:
+            profiling.range_buffer(dev)            # made outside every graph's pool
         self.static = {}
         if self.stream is None:
             self.stream = torch.cuda.Stream(dev)
@@ -230,16 +272,30 @@ class _GraphedStep:
                              **{k: v for k, v in inputs.items() if k != "views"})
         main.wait_stream(self.stream)
         loss.record_stream(main)
-        static = {k: v.clone() for k, v in inputs.items()}
+        self.static = {k: v.clone() for k, v in inputs.items()}
+        self.graph, self.loss, self.launches = self._record(arrays)
+        if self.with_twin:
+            self.twin, self.twin_loss, self.twin_launches = self._record(
+                arrays, pool=self.graph.pool(), marked=True)
+        self.replayed_twin = False
+        self.key = self._key(arrays, inputs)
+        return loss
+
+    def _record(self, arrays, pool=None, marked: bool = False):
+        """Capture the step on the static inputs (with range marks when
+        ``marked``): (graph, its loss buffer, the launches it recorded)."""
+        static = self.static
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
         before = Counter(_build.LAUNCHES)
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
-                static_loss = self.step(
-                    arrays, static["views"],
-                    **{k: v for k, v in static.items() if k != "views"})
+            with torch.cuda.graph(graph, pool=pool, stream=self.stream):
+                with (profiling.marking(static["views"].device) if marked
+                      else contextlib.nullcontext()):
+                    static_loss = self.step(
+                        arrays, static["views"],
+                        **{k: v for k, v in static.items() if k != "views"})
         except Exception as exc:
             raise RuntimeError(
                 f"capturing the training step in a CUDA graph failed: "
@@ -249,10 +305,7 @@ class _GraphedStep:
             recorded.subtract(before)
             _build.LAUNCHES.clear()
             _build.LAUNCHES.update(before)
-        self.graph, self.static, self.loss = graph, static, static_loss
-        self.launches = +recorded
-        self.key = self._key(arrays, inputs)
-        return loss
+        return graph, static_loss, +recorded
 
 
 def make_epoch_fn(cfg: Dict[str, Any], field: DensityField, optimizer,
@@ -296,30 +349,42 @@ def epoch_loop(step: Callable, graphed: "_GraphedStep", optimizer,
     """The epoch function of :func:`make_epoch_fn` over ``step`` (``step(
     arrays, views, **draws) -> loss``, which sets no rate): the rate of
     ``schedule`` filled in between the steps, and each step through
-    ``graphed`` where ``graphed_on(device)`` holds, else eagerly."""
+    ``graphed`` where ``graphed_on(device)`` holds, else eagerly.  Host
+    ranges (``utils/profiling.py``, open while a profiler runs): ``epoch``
+    around the call, ``epoch.stage`` around the staging of the view order
+    and draws, ``step`` around each step, with ``step.set_lr``,
+    ``step.feed`` and ``step.replay`` (``_GraphedStep``) and ``step.loss``
+    inside it."""
 
     def fn(arrays, view_order, start_step: int, *, draws=None, timer=None):
-        dev = arrays["pools"].device
-        views = torch.as_tensor(view_order, dtype=torch.long, device=dev)
-        fed = {k: torch.as_tensor(v, device=dev) for k, v in (draws or {}).items()}
-        unknown = set(fed) - set(DRAWS)
-        if unknown:
-            raise ValueError(f"unknown draws {sorted(unknown)}; the step takes {DRAWS}")
-        capture = graphed_on(dev)
-        losses = torch.empty(views.shape[0], device=dev)
-        lr = None
-        for i in range(views.shape[0]):
-            if schedule(start_step + i) != lr:
-                lr = schedule(start_step + i)
-                set_lr(optimizer, lr)
-            if capture:
-                inputs = {"views": views[i], **{k: v[i] for k, v in fed.items()}}
-                losses[i] = graphed(arrays, inputs)
-            else:
-                losses[i] = step(arrays, views[i], **{k: v[i] for k, v in fed.items()})
-            if timer is not None:
-                timer.tick()
-        return losses
+        with layer_range("epoch"):
+            with layer_range("epoch.stage"):
+                dev = arrays["pools"].device
+                views = torch.as_tensor(view_order, dtype=torch.long, device=dev)
+                fed = {k: torch.as_tensor(v, device=dev) for k, v in (draws or {}).items()}
+                unknown = set(fed) - set(DRAWS)
+                if unknown:
+                    raise ValueError(f"unknown draws {sorted(unknown)}; the step "
+                                     f"takes {DRAWS}")
+                capture = graphed_on(dev)
+                losses = torch.empty(views.shape[0], device=dev)
+            lr = None
+            for i in range(views.shape[0]):
+                with layer_range("step"):
+                    with layer_range("step.set_lr"):
+                        if schedule(start_step + i) != lr:
+                            lr = schedule(start_step + i)
+                            set_lr(optimizer, lr)
+                    if capture:
+                        inputs = {"views": views[i], **{k: v[i] for k, v in fed.items()}}
+                        loss = graphed(arrays, inputs)
+                    else:
+                        loss = step(arrays, views[i], **{k: v[i] for k, v in fed.items()})
+                    with layer_range("step.loss"):
+                        losses[i] = loss
+                    if timer is not None:
+                        timer.tick()
+            return losses
 
     fn.step, fn.graphed = step, graphed
     return fn

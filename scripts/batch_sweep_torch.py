@@ -162,7 +162,7 @@ def child(n_rays: int, dtype: str, steps: int, device=None) -> Dict[str, Any]:
     launches = dict(_build.LAUNCHES)
     last_epoch = lambda: epoch_fn(arrays, order, (TIMED + 1) * steps).cpu()  # noqa: E731
     if cuda:
-        last, epoch_dev, _ = traced_device_ms(last_epoch)
+        last, epoch_dev, _, _ = traced_device_ms(last_epoch)
         epoch_dev /= steps
     else:
         last, epoch_dev = last_epoch(), None

@@ -15,10 +15,14 @@ capture and replays), then prints:
 
 - the wall time per step of an unprofiled window (host clock around
   ``--steps`` steps, ending in a synchronize) and the summed device kernel
-  time per step of the profiled window;
-- the device idle share, 1 - kernel time / unprofiled wall time (the
-  kernels of one stream do not overlap; the profiler's own host overhead
-  would inflate the profiled window's wall time);
+  time per step of the profiled window (the range marks apart);
+- the device idle share of the profiled window: 1 - the union of its
+  device activity (kernels, copies, fills) over that activity's own span,
+  first start to last end;
+- the layer ranges of the graphed step (``utils/profiling.py``): under
+  the profiler the epoch replays the step's marked twin, and
+  ``range_totals()`` gives each range's device ms a step (the eager loop
+  and the sharded epoch have no marks: the table is then empty);
 - device time by kernel name (top ``--top``), with the four encoder
   kernels of ``csrc/`` marked;
 - the number of kernel launches per step (for the graphed epoch, the
@@ -169,23 +173,36 @@ def profile(tr, args) -> int:
     sites, inner = sync_sites(lambda: run(3))
     n_syncs = sum(sites.values()) / SYNC_STEPS
 
-    from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
-        device_kernels)
-    rows = [(k, ms / args.steps, n / args.steps)
-            for k, (ms, n) in device_kernels(prof).items()]
+    from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
+    kernels, marks = profiling.device_kernels(prof)
+    rows = [(k, ms / args.steps, n / args.steps) for k, (ms, n) in kernels.items()]
     rows.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
+    busy_ms, window_ms = profiling.device_busy(prof)
+    idle = 1 - busy_ms / window_ms if window_ms > 0 else float("nan")
+    totals = profiling.range_totals(tr.device)
+    ranges = {r: ms / totals["steps"] for r, ms in totals["device_ms"].items()
+              if totals["hits"][r]} if totals["steps"] == args.steps else {}
     mode = "eager loop" if args.eager else "graphed epoch"
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"config: {args.config} {' '.join(args.encoder)}"
           f"{' force_mesh' if args.force_mesh else ''}, {mode}, {args.steps} profiled "
           f"steps after {args.warmup} warm-up")
     print(f"[{mode}] wall per step: {wall_ms:.3f} ms unprofiled, {prof_wall_ms:.3f} ms "
-          f"profiled; device kernel time per step: {dev_ms:.3f} ms; "
-          f"device idle share: {1 - dev_ms / wall_ms:.3f}; kernel launches per step: "
+          f"profiled; device kernel time per step: {dev_ms:.3f} ms (range marks "
+          f"{marks[0] / args.steps:.3f} ms, {marks[1] / args.steps:.0f} launches); "
+          f"device idle share of the profiled window: {idle:.4f} ({busy_ms:.1f} of "
+          f"{window_ms:.1f} ms); kernel launches per step: "
           f"{launches:.0f}; peak device memory (max_memory_allocated): "
           f"{peak_mb:.1f} MB, reserved {reserved_mb:.1f} MB")
+    if ranges:
+        print(f"{'device ms/step':>14}  layer range (utils/profiling.py::range_totals)")
+        for r, ms in ranges.items():
+            print(f"{ms:14.4f}  {r}")
+        print(f"{sum(ranges.values()):14.4f}  all ranges")
+    else:
+        print(f"[{mode}] no marked steps: no layer ranges on the device")
     print(f"[{mode}] host syncs per step: {n_syncs:g} over {SYNC_STEPS} steps "
           f"({', '.join(f'{k} x{n}' for k, n in sites.most_common())}; innermost "
           f"frames: {', '.join(f'{k} x{n}' for k, n in inner.most_common())})")
@@ -200,7 +217,9 @@ def profile(tr, args) -> int:
                "force_mesh": args.force_mesh, "steps": args.steps,
                "wall_ms_per_step": wall_ms,
                "profiled_wall_ms_per_step": prof_wall_ms,
-               "device_ms_per_step": dev_ms, "device_idle_share": 1 - dev_ms / wall_ms,
+               "device_ms_per_step": dev_ms, "device_idle_share": idle,
+               "range_marks_ms_per_step": marks[0] / args.steps,
+               "range_ms_per_step": ranges,
                "launches_per_step": launches, "peak_memory_mb": peak_mb,
                "reserved_memory_mb": reserved_mb,
                "host_syncs_per_step": n_syncs, "host_sync_sites": dict(sites),

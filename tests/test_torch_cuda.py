@@ -20,6 +20,7 @@ version of a CPU copy on any payload (on the card ``index_add_`` adds with
 atomics, in no fixed order).
 """
 
+import contextlib
 import dataclasses
 import os
 
@@ -968,6 +969,7 @@ def test_graphed_mesh_of_one_resume_captures_again(dev, tmp_path, monkeypatch):
         tr.start()                                   # epochs 0 and 1; saves epoch 1
         graph = tr._epoch_fn.graphed.graph
         assert graph is not None
+        assert tr._epoch_fn.graphed.twin is None     # the sharded graph has no twin
         order = torch.as_tensor(tr._view_order(2), device=dev)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -1026,4 +1028,109 @@ def test_graphed_steps_at_8192_rays_equal_eager_steps(dev, monkeypatch):
     eager = torch.stack([step(arrays, order[i]) for i in range(steps)])
     assert torch.equal(graphed, eager), (graphed, eager)
     for a, b in zip(field.parameters(), field_e.parameters()):
+        assert torch.equal(a, b)
+
+
+# ---- the marked twin of the graphed step (utils/profiling.py ranges) ----
+
+# the main path's marks a step: its 15 leaf ranges, encode.permute twice,
+# and the end mark
+_MAIN_MARKS = 17
+
+
+def _marked_hits(steps):
+    from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
+
+    hits = {r: steps for r in profiling.RANGES}
+    hits.update({"encode": 0, "encode.permute": 2 * steps, "step.io": steps - 1})
+    return hits
+
+
+def test_marked_twin_launches_marks_only_when_asked(dev):
+    """The plain graph carries no mark: its replays leave
+    ``LAUNCHES["range_mark"]`` where it was.  Replays inside
+    ``profiling.ranges()`` and under ``torch.profiler`` run the marked twin,
+    one launch a mark; the range sums count its steps and every range of
+    the main path; the marks' kernels are kept apart by ``device_kernels``,
+    and the device copies of the ``nvr.`` host ranges are user annotations."""
+    from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
+
+    order = torch.arange(10, device=dev)[:, None]
+    arrays, _, epoch_fn, _, _ = _epoch_parts(dev, {})
+    epoch_fn(arrays, order[:1], 0)                   # the eager step and both captures
+    graphed = epoch_fn.graphed
+    assert graphed.twin is not None and graphed.launches["range_mark"] == 0
+    assert graphed.twin_launches["range_mark"] == _MAIN_MARKS
+    n0 = _build.LAUNCHES["range_mark"]
+    epoch_fn(arrays, order[1:3], 1)
+    assert _build.LAUNCHES["range_mark"] == n0
+    with profiling.ranges():
+        epoch_fn(arrays, order[3:6], 3)
+    assert _build.LAUNCHES["range_mark"] == n0 + 3 * _MAIN_MARKS
+    t = profiling.range_totals(dev)
+    assert t["steps"] == 3 and t["hits"] == _marked_hits(3), t
+    epoch_fn(arrays, order[6:7], 6)                  # plain: the next marked replay resets
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        epoch_fn(arrays, order[7:10], 7)
+        torch.cuda.synchronize()
+    assert profiling.range_totals(dev)["steps"] == 3
+    kernels, marks = profiling.device_kernels(prof)
+    assert marks[1] == 3 * _MAIN_MARKS and marks[0] > 0
+    assert not any(profiling.MARK_KERNEL in k for k in kernels)
+    annotations = [ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.name.startswith(profiling.PREFIX)]
+    assert all(ev.is_user_annotation for ev in annotations)
+    assert _build.LAUNCHES["range_mark"] == n0 + 6 * _MAIN_MARKS
+
+
+def test_marked_step_ranges_sum_to_its_time(dev):
+    """Each marked step's ranges add up to its time from the first mark to
+    the end mark (within 1 %), read from the stamps the marks store."""
+    from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
+
+    order = torch.arange(5, device=dev)[:, None]
+    arrays, _, epoch_fn, _, _ = _epoch_parts(dev, {})
+    epoch_fn(arrays, order[:2], 0)
+    for i in range(2, 5):
+        profiling.reset_ranges(dev)
+        with profiling.ranges():
+            epoch_fn(arrays, order[i:i + 1], i)
+        t = profiling.range_totals(dev)
+        h = profiling.range_buffer(dev).cpu()
+        step_ms = float(h[_MAIN_MARKS - 1] - h[0]) / 1e6
+        assert t["steps"] == 1 and t["hits"]["step.io"] == 0
+        assert 0 < step_ms < 1e3
+        assert sum(t["device_ms"].values()) == pytest.approx(step_ms, rel=0.01)
+        assert all(t["device_ms"][r] > 0 for r, n in _marked_hits(1).items() if n)
+
+
+@pytest.mark.parametrize("draws", ["generator", "fed"])
+def test_alternating_marked_replays_equal_plain_replays(dev, draws):
+    """Eight steps, each its own call, alternating plain and marked
+    replays, are ``torch.equal`` in losses and parameters to eight plain
+    steps of one call, from the same seed: with the generator's own draws
+    (the twin registers the same generator) and with fed draws."""
+    from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
+
+    steps = 8
+    order = torch.arange(steps, device=dev)[:, None]
+    fed = None
+    if draws == "fed":
+        g = torch.Generator(device=dev).manual_seed(5)
+        fed = {"r": torch.randint(0, 50, (steps, 1, 64), generator=g, device=dev),
+               "t_rand": torch.rand((steps, 64, 32), generator=g, device=dev)}
+    arrays, field, epoch_fn, _, _ = _epoch_parts(dev, {}, seed=3)
+    plain = epoch_fn(arrays, order, 0, draws=fed)
+    arrays_b, field_b, epoch_b, _, _ = _epoch_parts(dev, {}, seed=3)
+    mixed = []
+    n0 = _build.LAUNCHES["range_mark"]
+    for i in range(steps):
+        part = None if fed is None else {k: v[i:i + 1] for k, v in fed.items()}
+        with profiling.ranges() if i % 2 else contextlib.nullcontext():
+            mixed.append(epoch_b(arrays_b, order[i:i + 1], i, draws=part))
+    assert _build.LAUNCHES["range_mark"] == n0 + (steps // 2) * _MAIN_MARKS
+    assert torch.equal(plain, torch.cat(mixed)), (plain, mixed)
+    for a, b in zip(field.parameters(), field_b.parameters()):
         assert torch.equal(a, b)
