@@ -15,7 +15,13 @@ Run from the root of a checkout, with no arguments:
    (``span_gather_sorted[table]``) bit-equal (``torch.equal``) to its
    plain version and to the rolled mode; bucket bit-equal and
    bit-identical across two runs, also on 700 identical points; unroll
-   atol 1e-5;
+   atol 1e-5; and the kernels the main path runs around its sort, each
+   ``torch.equal`` to its plain version: the index kernel (``encode_index``),
+   the span gather's point-order mode (``span_gather_sorted[table,point_order]``:
+   the table mode reading and writing through the sort's permutation), the
+   features' transpose and widening (``unpack_feats_t``), the gradient's
+   transpose (``transpose_grad_t``) and the gradient-permute kernel
+   (``encode_grad_permute``);
 3. times each kernel, its plain version and (where one PyTorch call
    computes the same function: ``torch.gather`` for the roll,
    ``index_add_`` for the bucket, the unroll and the scatter) that call
@@ -216,6 +222,13 @@ i. the last JAX scripts' paths, after h, each driven with the launch
        cuda:0, finite rays/s; a ``scripts`` JSON line before the kernels
        line.
 
+Wherever a training path below must launch "the table mode" once a
+step, the main path's route is meant: the span gather's point-order mode,
+the index kernel, the features' unpack, the gradient's transpose and the
+gradient-permute kernel once a step each, the plain table mode never;
+where the kernels are held at a path's shape, those five are held and
+timed beside the others, under the same modes.
+
 The bucket is the tile design of ``csrc/bucket_matmul.cu`` (one block per
 1024-column tile with two searches per tile, slice blocks for runs of
 2048 or more, every run summed in stream order) and is bit-equal to its
@@ -243,20 +256,35 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 _SOURCE = {"roll_broadcast_fm": "roll_kernels", "unroll_reduce_fm": "roll_kernels",
            "span_gather_sorted": "span_gather", "bucket_grad_matmul": "bucket_matmul",
-           "scatter_level": "scatter_level"}
+           "scatter_level": "scatter_level", "encode_index": "encode_io",
+           "unpack_feats_t": "encode_io", "transpose_grad_t": "encode_io",
+           "encode_grad_permute": "encode_io"}
 _TPU = "neuralvolumetricreconstructionformedicalimages_tpu/"
 _REPLACES = {"roll_broadcast_fm": _TPU + "ops/roll_kernels.py:152",
              "span_gather_sorted": _TPU + "ops/span_gather.py:282",
              "bucket_grad_matmul": _TPU + "ops/bucket_matmul.py:261",
              "unroll_reduce_fm": _TPU + "ops/roll_kernels.py:192",
-             "scatter_level": "scripts/microbench_encoder.py:142"}
+             "scatter_level": "scripts/microbench_encoder.py:142",
+             "encode_index": "no TPU kernel: PyTorch ops (ops/coherent_hash.py::"
+                             "base_and_frac_t, ops/span_gather.py::pack_frac_t)",
+             "unpack_feats_t": "no TPU kernel: PyTorch ops (ops/span_gather.py::"
+                               "_unpack_feats of a transpose)",
+             "transpose_grad_t": "no TPU kernel: a strided read of the gradient "
+                                 "inside the PyTorch gather",
+             "encode_grad_permute": "no TPU kernel: PyTorch ops (ops/span_gather.py::"
+                                    "unpack_frac_t, a gather of the gradient)"}
 # Phase (f): the two shared-card ranks' group times out after this; the
 # parent kills them after PARALLEL_JOIN_S.
 PARALLEL_GROUP_TIMEOUT_S, PARALLEL_JOIN_S = 120, 300
 # The main path's kernels: launched in every step (True) or never (False).
-MAIN_NEEDS = {"span_gather_sorted[table]": True, "bucket_grad_matmul": True,
-              "unroll_reduce_fm": True, "span_gather_sorted": False,
-              "roll_broadcast_fm": False}
+MAIN_NEEDS = {"span_gather_sorted[table,point_order]": True, "encode_index": True,
+              "unpack_feats_t": True, "transpose_grad_t": True,
+              "encode_grad_permute": True, "bucket_grad_matmul": True,
+              "unroll_reduce_fm": True, "span_gather_sorted[table]": False,
+              "span_gather_sorted": False, "roll_broadcast_fm": False}
+# The kernels of the main path's route around its sort
+ROUTE = ("span_gather_sorted[table,point_order]", "encode_index", "unpack_feats_t",
+         "transpose_grad_t", "encode_grad_permute")
 # The other encoder paths of phase (d): overrides of the cfg's encoder and
 # the kernels that must launch in every step (True) or never (False).
 TRAIN_STEPS = 20
@@ -264,13 +292,13 @@ PATHS = {
     "xor": ({"hash_variant": "xor"},
             {"bucket_grad_matmul": True, "span_gather_sorted": False,
              "span_gather_sorted[table]": False, "unroll_reduce_fm": False,
-             "roll_broadcast_fm": False}),
+             "roll_broadcast_fm": False, **{k: False for k in ROUTE}}),
     "rolled": ({"forward": "rolled", "input_grads": True, "table_dtype": "bfloat16"},
                {"roll_broadcast_fm": True, "bucket_grad_matmul": True,
                 "unroll_reduce_fm": True, "span_gather_sorted": False,
-                "span_gather_sorted[table]": False}),
+                "span_gather_sorted[table]": False, **{k: False for k in ROUTE}}),
     "take": ({"backward": "take"},
-             {k: False for k in (*_SOURCE, "span_gather_sorted[table]")}),
+             {k: False for k in (*_SOURCE, "span_gather_sorted[table]", *ROUTE)}),
 }
 
 
@@ -278,28 +306,41 @@ PATHS = {
 # and the real-scan path's rays a step.
 LAMINO_SCAN = "configs/scans/lamino_chip.yaml"
 REAL_RAYS = 4096
+
+
+def route_modes(mode: str) -> dict:
+    """The kernels-line entries of the main path's route at a path's shape
+    (``hold_path_kernels`` with ``x01``), by launch count key."""
+    return {ROUTE[0]: f"span_gather_sorted[table_{mode},point_order]",
+            **{k: f"{k}[{mode}]" for k in ROUTE[1:]}}
+
+
 # e3: the kernels-line entries of the main path's kernels at the real-scan
 # shapes, by launch count key
 REAL_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_real_scan]",
               "bucket_grad_matmul": "bucket_grad_matmul[real_scan]",
-              "unroll_reduce_fm": "unroll_reduce_fm[real_scan]"}
+              "unroll_reduce_fm": "unroll_reduce_fm[real_scan]",
+              **route_modes("real_scan")}
 # Phase (g): the same at the abdomen envelope's shapes (576 samples a ray)
 ABDOMEN_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_abdomen]",
                  "bucket_grad_matmul": "bucket_grad_matmul[abdomen]",
-                 "unroll_reduce_fm": "unroll_reduce_fm[abdomen]"}
+                 "unroll_reduce_fm": "unroll_reduce_fm[abdomen]",
+                 **route_modes("abdomen")}
 # Phase (h): the batch sweep's ray counts (one table dtype), the steps of
 # h3's 8,192-ray epoch, and the kernels-line entries at its shape
 SWEEP_ARGS = ["--batches", "1024,8192", "--dtypes", "bfloat16", "--steps", "8"]
 BATCH_RAYS, BATCH_STEPS = 8192, 4
 BATCH_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_batch8192]",
                "bucket_grad_matmul": "bucket_grad_matmul[batch8192]",
-               "unroll_reduce_fm": "unroll_reduce_fm[batch8192]"}
+               "unroll_reduce_fm": "unroll_reduce_fm[batch8192]",
+               **route_modes("batch8192")}
 # Phase (i): the kernels-line entries at the verify drive's shape, the
 # resumes (config, epoch, StepLR period in epochs) and the scaling sweep's
 # rank counts
 VERIFY_MODES = {"span_gather_sorted[table]": "span_gather_sorted[table_verify]",
                 "bucket_grad_matmul": "bucket_grad_matmul[verify]",
-                "unroll_reduce_fm": "unroll_reduce_fm[verify]"}
+                "unroll_reduce_fm": "unroll_reduce_fm[verify]",
+                **route_modes("verify")}
 # consolidate's period fires the decay at its resumed epoch (the checkpoint
 # holds lrate, the new config gives lrate*gamma); finetune's gives gamma^3
 # where the checkpoint holds gamma^1, so a rate kept from it would fail
@@ -329,14 +370,21 @@ def check_exact(where: str, launches, steps: int, needs=MAIN_NEEDS) -> None:
 
 def _launch_key(kernel: str):
     """The launch-count key of a kernel of ``csrc/`` by its traced name
-    (the span gather's mode is its last template argument, 0 = rolled),
-    or None for any other kernel."""
+    (the span gather's mode is its fourth template argument, 0 = rolled,
+    and its fifth ``true`` in the point-order mode), or None for any other
+    kernel."""
     import re
 
     if "span_gather_kernel<" in kernel:
-        mode = re.search(r"span_gather_kernel<([^>]*)>", kernel).group(1).split(",")[-1]
-        return "span_gather_sorted" if mode.strip() == "0" else "span_gather_sorted[table]"
-    for name, key in (("bucket_kernel<", "bucket_grad_matmul"),
+        args = re.search(r"span_gather_kernel<([^>]*)>", kernel).group(1).split(",")
+        if args[3].strip() == "0":
+            return "span_gather_sorted"
+        return ROUTE[0] if args[4].strip() == "true" else "span_gather_sorted[table]"
+    for name, key in (("encode_index_kernel", "encode_index"),
+                      ("unpack_feats_kernel", "unpack_feats_t"),
+                      ("transpose_grad_kernel", "transpose_grad_t"),
+                      ("encode_grad_permute_kernel", "encode_grad_permute"),
+                      ("bucket_kernel<", "bucket_grad_matmul"),
                       ("unroll_reduce_kernel<", "unroll_reduce_fm"),
                       ("roll_broadcast_kernel", "roll_broadcast_fm"),
                       ("scatter_kernel<", "scatter_level")):
@@ -486,7 +534,7 @@ def stream_counts(spec, sk):
 
 
 def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
-                      plain_iters: int = 20, table_dtype=None) -> None:
+                      plain_iters: int = 20, table_dtype=None, x01=None) -> None:
     """The kernels of a training path's step on one batch's sorted stream
     (keys ``sk``, packed fracs ``spf``, f32 ``table``, ``grads``): the
     span gather's table mode bit-equal to the rolled mode and to its plain
@@ -494,7 +542,12 @@ def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
     twice, the unroll of its gradient atol 1e-5; each timed by ``record``
     under ``span_mode`` (the span gather) and ``mode`` (the bucket and the
     unroll; None for their main entries).  The gather rounds the table to
-    ``table_dtype`` (default bf16, the chest_50 model's)."""
+    ``table_dtype`` (default bf16, the chest_50 model's).  With the batch's
+    points ``x01`` (whose sorted stream ``sk``, ``spf`` is), the main
+    path's kernels around its sort too: the index kernel and the
+    gradient-permute kernel under ``mode``, the span gather's point-order
+    mode under ``<span_mode>,point_order``, each ``torch.equal`` to its
+    plain version."""
     import torch
 
     from neuralvolumetricreconstructionformedicalimages_torch.ops import (
@@ -536,6 +589,9 @@ def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
            lambda: sg.span_gather_sorted_table_plain(sk, spf, table, spec, tdt), None,
            L * B * 4 * 2 + touched * C * 4 + L * C * B * 4,
            L * B * (K * D + 2 * K * C), mode=span_mode, plain_iters=plain_iters)
+    if x01 is not None:
+        hold_route_kernels(record, spec, x01, table, grads, tdt, touched, span_mode,
+                           mode, plain_iters)
 
     # bucket: bit-equal to plain, bit-identical twice
     sf = sg.unpack_frac_t(spf[:, 0])
@@ -571,6 +627,80 @@ def hold_path_kernels(record, spec, sk, spf, table, grads, span_mode, mode,
            unroll_index_add_call(g1, spec, C),
            L * F * S * 4 + L * S * C * 4, L * S * C * (K - 1), mode=mode,
            plain_iters=plain_iters)
+
+
+def hold_route_kernels(record, spec, x01, table, grads, tdt, touched, span_mode, mode,
+                       plain_iters: int) -> None:
+    """The main path's kernels around its sort on one batch's points
+    ``x01`` [B, 3]: the index kernel, the span gather's point-order mode,
+    the features' unpack, the gradient's transpose and the gradient-permute
+    kernel (``grads`` [L, C, B] in point order
+    taken as the output gradient), each ``torch.equal`` to its plain
+    version and to the PyTorch ops it replaces, and timed by ``record``.
+    Bounds: each input byte read once, each output byte written once
+    (``touched`` canonical rows of the table)."""
+    import torch
+
+    from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
+    from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
+        base_and_frac_t)
+    L, C, D = spec.num_levels, spec.level_dim, spec.input_dim
+    K, B = 1 << D, x01.shape[0]
+
+    def check(name, got, plain, ops):
+        if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+            raise AssertionError(f"{name} is not bit-equal to its plain version")
+        if not all(torch.equal(a, b) for a, b in zip(got, ops)):
+            raise AssertionError(f"{name} is not bit-equal to the PyTorch ops")
+        return 0.0
+
+    base, pos = sg.encode_index(spec, x01)
+    base_t, frac_t = base_and_frac_t(spec, x01)
+    err = check("encode_index", (base, pos), sg.encode_index_plain(spec, x01),
+                (base_t, sg.pack_frac_t(frac_t)))
+    del base_t, frac_t
+    record("encode_index", err, lambda: sg.encode_index(spec, x01),
+           lambda: sg.encode_index_plain(spec, x01), None, B * D * 4 + 2 * L * B * 4, 0,
+           mode=mode, plain_iters=plain_iters)
+
+    sk, perm = torch.sort(base, dim=-1, stable=True)
+    spf, feats = sg.span_gather_point_order(sk, perm, pos, table, spec, tdt)
+    fs = sg.span_gather_sorted_table(sk, spf[:, None, :], table, spec, tdt)
+    packed = sg._pack_feats(fs)
+    err = check("span_gather_sorted[table,point_order]", (spf, feats),
+                sg.span_gather_point_order_plain(sk, perm, pos, table, spec, tdt),
+                (torch.gather(pos, 1, perm),
+                 torch.empty_like(packed).scatter_(1, perm, packed)))
+    del fs, packed
+    record("span_gather_sorted", err,
+           lambda: sg.span_gather_point_order(sk, perm, pos, table, spec, tdt),
+           lambda: sg.span_gather_point_order_plain(sk, perm, pos, table, spec, tdt),
+           None, L * B * (4 + 8 + 4 + 4 + 4) + touched * C * 4,
+           L * B * (K * D + 2 * K * C), mode=f"{span_mode},point_order",
+           plain_iters=plain_iters)
+
+    err = check("unpack_feats_t", (sg.unpack_feats_t(feats),),
+                (sg.unpack_feats_t_plain(feats),),
+                (sg._unpack_feats(feats.t()).reshape(B, L * C),))
+    record("unpack_feats_t", err, lambda: sg.unpack_feats_t(feats),
+           lambda: sg.unpack_feats_t_plain(feats), None, L * B * (4 + C * 4), 0,
+           mode=mode, plain_iters=plain_iters)
+
+    g = grads.permute(2, 0, 1).reshape(B, L * C).contiguous()
+    gT = sg.transpose_grad_t(g, L)
+    err = check("transpose_grad_t", (gT,), (sg.transpose_grad_t_plain(g, L),),
+                (grads.permute(0, 2, 1),))
+    record("transpose_grad_t", err, lambda: sg.transpose_grad_t(g, L),
+           lambda: sg.transpose_grad_t_plain(g, L), None, 2 * L * B * C * 4, 0,
+           mode=mode, plain_iters=plain_iters)
+    sg_ops = torch.gather(grads, 2, perm[:, None, :].expand(L, C, B))
+    err = check("encode_grad_permute", sg.encode_grad_permute(perm, spf, gT),
+                sg.encode_grad_permute_plain(perm, spf, gT),
+                (sg_ops, sg.unpack_frac_t(spf)))
+    del sg_ops
+    record("encode_grad_permute", err, lambda: sg.encode_grad_permute(perm, spf, gT),
+           lambda: sg.encode_grad_permute_plain(perm, spf, gT), None,
+           L * B * (8 + 4 + 8 + C * 4 + D * 4), 0, mode=mode, plain_iters=plain_iters)
 
 
 def scatter_against_library(kernel, library, rounds: int = 5) -> dict:
@@ -819,8 +949,8 @@ def real_scan(dev, record, entry_of) -> dict:
     rays = gather_view_batch(tr._arrays, int(tr._view_order(0)[0][0]), REAL_RAYS, g,
                              geo=ds.geo, near=ds.near, far=ds.far)["rays"]
     spec = tr.field.encoder.grid
-    sk, spf = sorted_stream(spec, encoder_points(
-        tr.field, rays, int(cfg["render"]["n_samples"]), g))
+    x01 = encoder_points(tr.field, rays, int(cfg["render"]["n_samples"]), g)
+    sk, spf = sorted_stream(spec, x01)
     del tr, ds, rays
     torch.cuda.empty_cache()
     table = torch.randn((spec.num_levels, spec.table_size, spec.level_dim),
@@ -828,7 +958,7 @@ def real_scan(dev, record, entry_of) -> dict:
     grads = torch.randn((spec.num_levels, spec.level_dim, sk.shape[1]),
                         generator=g, device=dev)
     hold_path_kernels(record, spec, sk, spf, table, grads, "table_real_scan",
-                      "real_scan", plain_iters=3)
+                      "real_scan", plain_iters=3, x01=x01)
     for key, mode_key in REAL_MODES.items():
         entry_of(mode_key)["launches"] = int(launches.get(key, 0))
     return res
@@ -930,7 +1060,8 @@ def config_classes(dev, record, entry_of, smi: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     rays = gather_view_batch(tr._arrays, 0, tr.n_rays, g)["rays"]
     spec = tr.field.encoder.grid
-    sk, spf = sorted_stream(spec, encoder_points(tr.field, rays, res["n_samples"], g))
+    x01 = encoder_points(tr.field, rays, res["n_samples"], g)
+    sk, spf = sorted_stream(spec, x01)
     del tr, rays
     torch.cuda.empty_cache()
     table = torch.randn((spec.num_levels, spec.table_size, spec.level_dim),
@@ -938,7 +1069,7 @@ def config_classes(dev, record, entry_of, smi: str) -> dict:
     grads = torch.randn((spec.num_levels, spec.level_dim, sk.shape[1]),
                         generator=g, device=dev)
     hold_path_kernels(record, spec, sk, spf, table, grads, "table_abdomen", "abdomen",
-                      plain_iters=3)
+                      plain_iters=3, x01=x01)
     for key, mode_key in ABDOMEN_MODES.items():
         entry_of(mode_key)["launches"] = int(res["launches"].get(key, 0))
     res["points_a_level"] = int(sk.shape[1])
@@ -1125,7 +1256,8 @@ def real_scale_batches(dev, record, entry_of, smi: str) -> dict:
     gk = torch.Generator(device=dev).manual_seed(2)
     rays = gather_view_batch(arrays, 0, BATCH_RAYS, gk)["rays"]
     spec = field.encoder.grid
-    sk, spf = sorted_stream(spec, encoder_points(field, rays, sweep.N_SAMPLES, gk))
+    x01 = encoder_points(field, rays, sweep.N_SAMPLES, gk)
+    sk, spf = sorted_stream(spec, x01)
     del epoch_fn, field, arrays, rays
     torch.cuda.empty_cache()
     table = torch.randn((spec.num_levels, spec.table_size, spec.level_dim),
@@ -1133,7 +1265,7 @@ def real_scale_batches(dev, record, entry_of, smi: str) -> dict:
     grads = torch.randn((spec.num_levels, spec.level_dim, sk.shape[1]),
                         generator=gk, device=dev)
     hold_path_kernels(record, spec, sk, spf, table, grads, "table_batch8192",
-                      "batch8192", plain_iters=3)
+                      "batch8192", plain_iters=3, x01=x01)
     for key, mode_key in BATCH_MODES.items():
         entry_of(mode_key)["launches"] = int(launches.get(key, 0))
     out["h3"] = dict(n_rays=BATCH_RAYS, steps=BATCH_STEPS, points_a_level=int(sk.shape[1]),
@@ -1191,14 +1323,14 @@ def verify_drive(dev, record, entry_of, smi: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(3)
     idx = vd.draw_indices(g, drive.arrays["rays"].shape[0], 1, dev)[0]
     spec = drive.field.encoder.grid
-    sk, spf = sorted_stream(spec, encoder_points(
-        drive.field, drive.arrays["rays"][idx], vd.N_SAMPLES, g))
+    x01 = encoder_points(drive.field, drive.arrays["rays"][idx], vd.N_SAMPLES, g)
+    sk, spf = sorted_stream(spec, x01)
     table = drive.field.table.detach().clone()
     grads = torch.randn((spec.num_levels, spec.level_dim, sk.shape[1]), generator=g,
                         device=dev)
     del drive
     hold_path_kernels(record, spec, sk, spf, table, grads, "table_verify", "verify",
-                      plain_iters=3, table_dtype=torch.float32)
+                      plain_iters=3, table_dtype=torch.float32, x01=x01)
     for key, mode_key in VERIFY_MODES.items():
         entry_of(mode_key)["launches"] = int(launches.get(key, 0))
     res["points_a_level"] = int(sk.shape[1])
@@ -1786,7 +1918,7 @@ def main() -> int:
 
     # ---- 2-4. the main path's kernels on its batch: the span gather's
     # table mode, the bucket and the unroll ----
-    hold_path_kernels(record, spec, sk, spf, table, grads, "table", None)
+    hold_path_kernels(record, spec, sk, spf, table, grads, "table", None, x01=x01)
     sf = sg.unpack_frac_t(spf[:, 0])
     kw = dict(table_size=S, input_dim=D, extend_cols=E)
     # duplicate-heavy: 700 identical points own one column

@@ -126,23 +126,21 @@ class HashEncoderSpec(EncoderSpec):
         6. Otherwise the oracle ``coherent_encode_reference``.
 
         Layer ranges: the scaling to the unit cube closes ``sample``; path 4
-        runs ``encode.index`` to ``encode.permute``, every other path one
-        ``encode``.
+        runs its own, ``encode.index`` to ``encode.permute``, every other
+        path one ``encode``.
         """
         with layer_range("sample"):
             x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
-            prefix = x01.shape[:-1]
-            x01 = x01.reshape(-1, self.grid.input_dim)
+        prefix = x01.shape[:-1]
         table = params.get("table")
         tiles = self.grid.table_size % 2048 == 0
         coherent = self.hash_variant == "coherent"
         if (coherent and "rolled" not in params and self.fast and self.backward != "take"
                 and self.forward == "sorted" and not self.input_grads and tiles):
             # its own ranges, encode.index to encode.permute
-            out = sorted_encode(x01, table, self.grid, self._table_dtype, self.pack_sort)
-            with layer_range("encode.permute"):
-                return out.reshape(*prefix, self.output_dim)
+            return sorted_encode(x01, table, self.grid, self._table_dtype, self.pack_sort)
         with layer_range("encode"):
+            x01 = x01.reshape(-1, self.grid.input_dim)
             if self.hash_variant == "xor":
                 if self.fast and self.backward != "take" and tiles:
                     out = hash_encode_fast(x01, table, self.grid)

@@ -30,7 +30,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("roll_kernels", "span_gather", "bucket_matmul", "scatter_level", "range_mark")
+SOURCES = ("roll_kernels", "span_gather", "bucket_matmul", "scatter_level", "range_mark",
+           "encode_io")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,9 +45,14 @@ ENTRIES: Dict[str, Tuple[str, list]] = {
     "nvr_unroll_reduce_fm": ("roll_kernels", [_P] * 3 + [_I] * 4 + [_L, _L, _P]),
     "nvr_span_gather_sorted": ("span_gather", [_P] * 4 + [_I] * 5 + [_L, _L, _P]),
     "nvr_span_gather_table": ("span_gather", [_P] * 5 + [_I] * 5 + [_L, _L, _P]),
+    "nvr_span_gather_point_order": ("span_gather", [_P] * 7 + [_I, _I, _L, _L, _P]),
     "nvr_bucket_grad_matmul": ("bucket_matmul", [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P]),
     "nvr_scatter_level": ("scatter_level", [_P] * 4 + [_I, _L, _L, _L, _P]),
     "nvr_range_mark": ("range_mark", [_P] + [_I] * 5 + [_P]),
+    "nvr_encode_index": ("encode_io", [_P] * 5 + [_I, _L, _L, _P]),
+    "nvr_encode_grad_permute": ("encode_io", [_P] * 5 + [_I, _L, _P]),
+    "nvr_unpack_feats": ("encode_io", [_P] * 2 + [_I, _L, _P]),
+    "nvr_transpose_grad": ("encode_io", [_P] * 2 + [_I, _L, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

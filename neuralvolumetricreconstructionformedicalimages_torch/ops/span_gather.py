@@ -11,6 +11,18 @@ Port of the JAX ``ops/span_gather.py``.  Pipeline of :func:`sorted_encode`:
 3. an index copy by the saved permutation un-permutes the features (the
    JAX code sorts a second time; it is the same function).
 
+On the card with packed positions (D = 3, C = 2, every shipped
+configuration) the work around the sort runs in kernels:
+:func:`encode_index` writes the base indices and the packed positions,
+:func:`span_gather_point_order` reads the positions and writes the
+features as bf16 pairs through the permutation (steps 2 and 3 in one
+pass), :func:`unpack_feats_t` transposes and widens them to [B, L*C] f32,
+and the backward's :func:`transpose_grad_t` and :func:`encode_grad_permute`
+bring the output gradient and the unpacked positions to sorted order.
+Elsewhere (the CPU, f32 positions, :func:`sorted_encode_features`)
+PyTorch ops do that work; they are the kernels' plain route, bit-equal to
+them.
+
 The JAX forward first builds the feature-major rolled table
 ``R[l, k*C + c, s] = table[l, (s + off[l, k]) % S, c]`` (``roll_broadcast_fm``)
 and gathers from it (:func:`span_gather_sorted`): the TPU has no gather
@@ -36,9 +48,15 @@ import torch
 
 from . import _build
 from .bucket_matmul import bucket_grad_matmul
-from .coherent_hash import _offsets_on, base_and_frac_t, corner_bits, corner_offsets
+from .coherent_hash import (
+    _mult_on,
+    _offsets_on,
+    base_and_frac_t,
+    corner_bits,
+    corner_offsets,
+)
 from ..utils.profiling import layer_range, range_mark
-from .hash_encoding import HashGridSpec
+from .hash_encoding import HashGridSpec, _scales_on
 from .roll_kernels import (
     _PAD,
     _unroll_sum,
@@ -317,6 +335,187 @@ def _unpack_feats(pk: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The kernel route around the sort: index, point-order gather, feature
+# unpack, gradient transpose and permute (packed positions, D = 3, C = 2)
+# ---------------------------------------------------------------------------
+
+def encode_index_plain(spec: HashGridSpec, x01: torch.Tensor):
+    """Plain version of :func:`encode_index`."""
+    base_t, frac_t = base_and_frac_t(spec, x01)
+    return base_t, pack_frac_t(frac_t)
+
+
+def encode_index(spec: HashGridSpec, x01: torch.Tensor):
+    """Base indices and packed in-cell positions of ``x01`` [B, 3] in [0,
+    1]: ``base`` [L, B] int32 and ``pos`` [L, B] int32, bit-equal to
+    :func:`base_and_frac_t` followed by :func:`pack_frac_t`.  One kernel
+    (``csrc/encode_io.cu``), counted in ``LAUNCHES["encode_index"]``."""
+    if _build.is_cpu(x01):
+        return encode_index_plain(spec, x01)
+    L, S = spec.num_levels, spec.table_size
+    _build.require(spec.input_dim == 3 and x01.dim() == 2 and x01.shape[1] == 3,
+                   f"encode_index takes [B, 3] points, got {tuple(x01.shape)}")
+    x = x01.to(torch.float32).contiguous()
+    B = x.shape[0]
+    base = torch.empty((L, B), dtype=torch.int32, device=x.device)
+    pos = torch.empty_like(base)
+    _build.LAUNCHES["encode_index"] += 1
+    _build.launch("nvr_encode_index", x.device, x.data_ptr(),
+                  _scales_on(spec, x.device).data_ptr(),
+                  _mult_on(spec, x.device).data_ptr(), base.data_ptr(),
+                  pos.data_ptr(), L, B, S)
+    return base, pos
+
+
+def span_gather_point_order_plain(sorted_keys: torch.Tensor, perm: torch.Tensor,
+                                  pos: torch.Tensor, table: torch.Tensor,
+                                  spec: HashGridSpec, table_dtype=torch.float32):
+    """Plain version of :func:`span_gather_point_order`: the positions
+    gathered into sorted order, the table mode's plain version, and the
+    features packed as bf16 pairs and put back in point order."""
+    spf = torch.gather(pos, 1, perm)
+    fs = span_gather_sorted_table_plain(sorted_keys, spf[:, None, :], table, spec,
+                                        table_dtype)              # [L, 2, B]
+    feats = torch.empty_like(pos)
+    feats[torch.arange(perm.shape[0], device=pos.device)[:, None], perm] = _pack_feats(fs)
+    return spf, feats
+
+
+def span_gather_point_order(sorted_keys: torch.Tensor, perm: torch.Tensor,
+                            pos: torch.Tensor, table: torch.Tensor,
+                            spec: HashGridSpec, table_dtype=torch.float32):
+    """The span gather's table mode reading and writing through the sort's
+    permutation: for sorted slot ``(l, i)`` and ``p = perm[l, i]``, the
+    packed position ``pos[l, p]`` goes to ``spf[l, i]`` and the features,
+    as one bf16 pair (``_pack_feats``), to ``feats[l, p]``.  Bit-equal to
+    gathering ``pos`` by ``perm``, :func:`span_gather_sorted_table`,
+    ``_pack_feats`` and a scatter back to point order;
+    :func:`unpack_feats_t` then makes the [B, L*2] f32 features.  Counted
+    under ``LAUNCHES["span_gather_sorted[table,point_order]"]``.
+
+    Args:
+      sorted_keys: [L, B] int32, ascending per level, in [0, S).
+      perm: [L, B] int64, the stable sort's permutation.
+      pos: [L, B] int32 packed positions in point order (:func:`encode_index`).
+      table: [L, S, 2] f32 canonical table.
+
+    Returns:
+      spf [L, B] int32 (``pos`` in sorted order) and feats [L, B] int32.
+    """
+    if _build.is_cpu(sorted_keys, perm, pos, table):
+        return span_gather_point_order_plain(sorted_keys, perm, pos, table, spec,
+                                             table_dtype)
+    L, B = sorted_keys.shape
+    _, S, C = table.shape
+    req = _build.require
+    req(sorted_keys.dtype == torch.int32 and pos.dtype == torch.int32
+        and perm.dtype == torch.int64, "keys and pos must be int32, perm int64")
+    req(tuple(perm.shape) == (L, B) and tuple(pos.shape) == (L, B),
+        f"keys {tuple(sorted_keys.shape)}, perm {tuple(perm.shape)} and pos "
+        f"{tuple(pos.shape)} disagree")
+    req(table.dtype == torch.float32 and C == 2 and spec.input_dim == 3
+        and L == spec.num_levels and S == spec.table_size,
+        f"table shape {tuple(table.shape)} does not fit the packed route")
+    req(table_dtype in (torch.float32, torch.bfloat16),
+        f"table_dtype must be float32 or bfloat16, got {table_dtype}")
+    req(all(t.is_contiguous() for t in (sorted_keys, perm, pos, table)),
+        "inputs must be contiguous")
+    spf = torch.empty_like(pos)
+    feats = torch.empty_like(pos)
+    _build.LAUNCHES["span_gather_sorted[table,point_order]"] += 1
+    _build.launch("nvr_span_gather_point_order", pos.device,
+                  sorted_keys.data_ptr(), pos.data_ptr(), perm.data_ptr(),
+                  table.data_ptr(), _offsets_on(spec, table.device).data_ptr(),
+                  spf.data_ptr(), feats.data_ptr(),
+                  int(table_dtype == torch.bfloat16), L, B, S)
+    return spf, feats
+
+
+def unpack_feats_t_plain(feats: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`unpack_feats_t`."""
+    L, B = feats.shape
+    return _unpack_feats(feats.t()).reshape(B, L * 2)
+
+
+def unpack_feats_t(feats: torch.Tensor) -> torch.Tensor:
+    """Level-major ``_unpack_feats``: [L, B] int32 bf16 pairs -> [B, L*2]
+    f32 features, a transpose and a widening in one kernel
+    (``csrc/encode_io.cu``), counted in ``LAUNCHES["unpack_feats_t"]``."""
+    if _build.is_cpu(feats):
+        return unpack_feats_t_plain(feats)
+    L, B = feats.shape
+    _build.require(feats.dtype == torch.int32 and feats.is_contiguous() and L <= 32,
+                   "feats must be contiguous [L, B] int32 with L <= 32")
+    out = torch.empty((B, L * 2), dtype=torch.float32, device=feats.device)
+    _build.LAUNCHES["unpack_feats_t"] += 1
+    _build.launch("nvr_unpack_feats", feats.device, feats.data_ptr(), out.data_ptr(),
+                  L, B)
+    return out
+
+
+def transpose_grad_t_plain(g: torch.Tensor, num_levels: int) -> torch.Tensor:
+    """Plain version of :func:`transpose_grad_t`."""
+    B = g.shape[0]
+    return g.reshape(B, num_levels, 2).to(torch.float32).transpose(0, 1).contiguous()
+
+
+def transpose_grad_t(g: torch.Tensor, num_levels: int) -> torch.Tensor:
+    """The output gradient [B, L*2] in the level-major layout [L, B, 2]
+    f32 (the inverse layout change of :func:`unpack_feats_t`): one kernel
+    (``csrc/encode_io.cu``), counted in ``LAUNCHES["transpose_grad_t"]``."""
+    if _build.is_cpu(g):
+        return transpose_grad_t_plain(g, num_levels)
+    L = int(num_levels)
+    g = g.to(torch.float32).contiguous()
+    B = g.shape[0]
+    _build.require(g.dim() == 2 and g.shape[1] == L * 2 and L <= 32,
+                   f"g must be [B, {L} * 2] with at most 32 levels, got {tuple(g.shape)}")
+    gT = torch.empty((L, B, 2), dtype=torch.float32, device=g.device)
+    _build.LAUNCHES["transpose_grad_t"] += 1
+    _build.launch("nvr_transpose_grad", g.device, g.data_ptr(), gT.data_ptr(), L, B)
+    return gT
+
+
+def encode_grad_permute_plain(perm: torch.Tensor, spf: torch.Tensor,
+                              gT: torch.Tensor):
+    """Plain version of :func:`encode_grad_permute`."""
+    L, B = perm.shape
+    sg = torch.gather(gT, 1, perm[:, :, None].expand(L, B, 2))    # [L, B, 2]
+    return sg.transpose(1, 2).contiguous(), unpack_frac_t(spf)
+
+
+def encode_grad_permute(perm: torch.Tensor, spf: torch.Tensor, gT: torch.Tensor):
+    """The level-major output gradient ``gT`` [L, B, 2]
+    (:func:`transpose_grad_t`) and the packed sorted positions ``spf`` [L,
+    B] in the layout the bucket kernel takes: ``sg[l, c, i] = gT[l, perm[l,
+    i], c]`` [L, 2, B] and ``sf`` = :func:`unpack_frac_t` of ``spf`` [L, 3,
+    B], both f32.  One kernel (``csrc/encode_io.cu``), counted in
+    ``LAUNCHES["encode_grad_permute"]``."""
+    if _build.is_cpu(perm, spf, gT):
+        return encode_grad_permute_plain(perm, spf, gT)
+    L, B = perm.shape
+    req = _build.require
+    req(perm.dtype == torch.int64 and spf.dtype == torch.int32
+        and gT.dtype == torch.float32, "perm must be int64, spf int32 and gT float32")
+    req(tuple(spf.shape) == (L, B) and tuple(gT.shape) == (L, B, 2),
+        f"perm {tuple(perm.shape)}, spf {tuple(spf.shape)} and gT "
+        f"{tuple(gT.shape)} disagree")
+    req(all(t.is_contiguous() for t in (perm, spf, gT)), "inputs must be contiguous")
+    sg = torch.empty((L, 2, B), dtype=torch.float32, device=gT.device)
+    sf = torch.empty((L, 3, B), dtype=torch.float32, device=gT.device)
+    _build.LAUNCHES["encode_grad_permute"] += 1
+    _build.launch("nvr_encode_grad_permute", gT.device, perm.data_ptr(),
+                  spf.data_ptr(), gT.data_ptr(), sg.data_ptr(), sf.data_ptr(), L, B)
+    return sg, sf
+
+
+def _kernel_route(x01: torch.Tensor, table: torch.Tensor, pack: bool) -> bool:
+    """Whether :func:`sorted_encode` does its work around the sort in the
+    kernels above (CUDA tensors, packed positions) or in PyTorch ops."""
+    return pack and not _build.is_cpu(x01, table)
+
+
+# ---------------------------------------------------------------------------
 # Full sorted-forward encode with the bucket backward
 # ---------------------------------------------------------------------------
 
@@ -380,16 +579,35 @@ def sorted_encode_features(base_t: torch.Tensor, frac_t: torch.Tensor,
 class _SortedEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x01, table, spec, table_dtype, pack):
+        shape = (*x01.shape[:-1], spec.output_dim)
+        pack = bool(pack) and spec.input_dim == 3 and spec.level_dim == 2
+        ctx.kernels = _kernel_route(x01, table, pack)
         with layer_range("encode.index"):
             tab = table.detach()
-            base_t, frac_t = base_and_frac_t(spec, x01.detach())
-            pack = bool(pack) and spec.input_dim == 3 and spec.level_dim == 2
-            pos = pack_frac_t(frac_t) if pack else frac_t
+            x = x01.detach().reshape(-1, spec.input_dim)
+            if ctx.kernels:
+                base_t, pos = encode_index(spec, x)
+            else:
+                base_t, frac_t = base_and_frac_t(spec, x)
+                pos = pack_frac_t(frac_t) if pack else frac_t
+        if ctx.kernels:
+            with layer_range("encode.sort"):
+                sk, perm = torch.sort(base_t, dim=-1, stable=True)
+            del base_t
+            with layer_range("encode.gather"):
+                sfrac, feats = span_gather_point_order(sk, perm, pos, tab, spec,
+                                                       table_dtype)
+            del pos
+            with layer_range("encode.permute"):
+                out = unpack_feats_t(feats).reshape(shape)
+        else:
+            def gather(sk, sfrac):
+                return span_gather_sorted_table(sk, sfrac, tab, spec, table_dtype)
 
-        def gather(sk, sfrac):
-            return span_gather_sorted_table(sk, sfrac, tab, spec, table_dtype)
-
-        out, (sk, perm, sfrac) = _encode_sorted(base_t, pos, gather, table.shape[2])
+            out, (sk, perm, sfrac) = _encode_sorted(base_t, pos, gather,
+                                                    table.shape[2])
+            with layer_range("encode.permute"):
+                out = out.reshape(shape)
         ctx.save_for_backward(sk, perm, sfrac)
         ctx.spec = spec
         ctx.pack = pack
@@ -403,11 +621,16 @@ class _SortedEncode(torch.autograd.Function):
         spec = ctx.spec
         L, B = sk.shape
         C = ctx.n_channels
-        # The packed fracs decode to the quantised positions the forward
-        # interpolated with, so the backward differentiates that function.
-        sf = unpack_frac_t(sfrac) if ctx.pack else sfrac
-        gt = g.reshape(B, L, C).permute(1, 2, 0).to(torch.float32)  # [L, C, B]
-        sg = torch.gather(gt, 2, perm[:, None, :].expand(L, C, B))
+        if ctx.kernels:
+            gT = transpose_grad_t(g.reshape(B, L * C), L)
+            sg, sf = encode_grad_permute(perm, sfrac, gT)
+            del gT
+        else:
+            # The packed fracs decode to the quantised positions the forward
+            # interpolated with, so the backward differentiates that function.
+            sf = unpack_frac_t(sfrac) if ctx.pack else sfrac
+            gt = g.reshape(B, L, C).permute(1, 2, 0).to(torch.float32)  # [L, C, B]
+            sg = torch.gather(gt, 2, perm[:, None, :].expand(L, C, B))
         range_mark("backward.encode.bucket")
         grad_rolled = bucket_grad_matmul(
             sk, sf, sg, table_size=spec.table_size, input_dim=spec.input_dim,
@@ -419,7 +642,7 @@ class _SortedEncode(torch.autograd.Function):
 
 def sorted_encode(x01: torch.Tensor, table: torch.Tensor, spec: HashGridSpec,
                   table_dtype=torch.float32, pack: bool = True) -> torch.Tensor:
-    """Coherent hash encode, sorted span-gather forward: [B, D] -> [B, L*C].
+    """Coherent hash encode, sorted span-gather forward: [..., D] -> [..., L*C].
 
     Differentiable wrt ``table`` only (bucket + unroll backward).  Raises
     if ``x01`` requires grad: this path computes no position gradients

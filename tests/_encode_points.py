@@ -1,0 +1,54 @@
+"""Point sets for the sorted encoder's index, point-order gather and
+gradient-permute kernels (``ops/span_gather.py``) and their plain
+versions, shared by the CPU tests and the card tests: uniform points,
+points at and next to cell edges (where a fused multiply-add would move
+``floor(x * scale + 0.5)``), the cube's corners and faces (x = 0 and x =
+1), 700 identical points, and a count that is not a multiple of the
+kernels' 256-thread block.  Imports no JAX."""
+
+import numpy as np
+import torch
+
+from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding import (
+    HashGridSpec)
+
+CASES = ("uniform", "cell_edges", "ends", "identical_700", "ragged")
+# every level dense ((res+1)^3 <= 2^19) / every level hashed
+SPECS = {"dense": HashGridSpec(num_levels=3, base_resolution=4, log2_hashmap_size=19),
+         "hashed": HashGridSpec(num_levels=3, base_resolution=16, log2_hashmap_size=12)}
+
+
+# the main path's spec and its points a level at 1,024 rays: chest_50
+# (192 samples a ray) and abdomen_50 (576)
+MAIN_SPEC = HashGridSpec(num_levels=16, base_resolution=16, log2_hashmap_size=19)
+MAIN_B = {"chest": 196_608, "abdomen": 589_824}
+
+
+def points(case: str, spec: HashGridSpec, seed: int = 0, n: int = 2048) -> torch.Tensor:
+    """[B, 3] f32 points in [0, 1] on the CPU (``n`` of them, uniform)."""
+    rng = np.random.default_rng(seed)
+    if case == "uniform":
+        x = rng.uniform(0, 1, (n, 3))
+    elif case == "ragged":
+        x = rng.uniform(0, 1, (1027, 3))
+    elif case == "identical_700":
+        x = np.tile(rng.uniform(0, 1, (1, 3)), (700, 1))
+    elif case == "ends":
+        corners = (np.arange(8)[:, None] >> np.arange(3)) & 1
+        faces = rng.uniform(0, 1, (504, 3))
+        faces[np.arange(504), np.arange(504) % 3] = np.arange(504) % 2
+        x = np.concatenate([corners, faces])
+    elif case == "cell_edges":
+        # (k - 0.5) / scale of each level and its f32 neighbours: some round
+        # x * scale to exactly k - 0.5, putting pos on the edge k
+        cols = []
+        for s in spec.scales.astype(np.float64):
+            k = rng.integers(1, int(s) + 1, 2048 // (3 * len(spec.scales)) + 1)
+            e = ((k - 0.5) / s).astype(np.float32)
+            cols.append(np.concatenate([np.nextafter(e, np.float32(0)), e,
+                                        np.nextafter(e, np.float32(1))]))
+        v = np.concatenate(cols)
+        x = np.stack([v, rng.permutation(v), rng.permutation(v)], axis=1)
+    else:
+        raise ValueError(case)
+    return torch.as_tensor(np.clip(x, 0, 1), dtype=torch.float32)

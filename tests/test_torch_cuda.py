@@ -11,7 +11,11 @@ Tolerances: rolls are copies (bit-equal); the span gather and the unroll
 reduce (f32 or bf16 input) take the same f32 operations in the same order
 as the plain versions, up to the plain versions' own kernels (atol 1e-5);
 the span gather's table mode reads the values of the rolled mode through
-the same arithmetic (bit-equal to it and to its plain version);
+the same arithmetic (bit-equal to it and to its plain version); the
+sorted encoder's index kernel, the span gather's point-order mode, the
+feature unpack, the gradient transpose and the gradient-permute kernel are
+bit-equal to their plain versions and to the PyTorch ops they replace, and ``sorted_encode`` through them to its
+PyTorch route;
 the bucket sum is bitwise reproducible run to run, and equals the plain
 version bit for bit (both sum every run in stream order from the same f32
 products); the scatter adds each row's updates in stream order, as
@@ -44,6 +48,8 @@ from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding impo
     HashGridSpec,
     hash_encode_fast,
 )
+
+import _encode_points as P
 
 pytestmark = pytest.mark.cuda
 
@@ -490,6 +496,142 @@ def test_wrapper_checks_raise(dev):
     assert np.isfinite(table.sum().item())
 
 
+# ---- the sorted encoder's kernel route: the index kernel, the span
+# gather's point-order mode, the feature unpack, the gradient transpose
+# and the gradient-permute kernel ----
+
+# the point sets of tests/_encode_points.py on a dense and a hashed grid,
+# and uniform points at the chest_50 and abdomen_50 shapes (1,024 rays)
+_ROUTE = ([(s, c, None) for s in sorted(P.SPECS) for c in P.CASES]
+          + [("main", "uniform", "chest"), ("main", "uniform", "abdomen")])
+_ROUTE_IDS = [f"{s}-{c}" if b is None else b for s, c, b in _ROUTE]
+_ROUTE_COUNTS = ("encode_index", "span_gather_sorted[table,point_order]",
+                 "unpack_feats_t", "transpose_grad_t", "encode_grad_permute")
+
+
+def _route_inputs(dev, spec_name, case, shape, seed):
+    """(spec, points [B, 3] on the card, f32 table [L, S, 2])."""
+    spec = P.MAIN_SPEC if spec_name == "main" else P.SPECS[spec_name]
+    x = P.points(case, spec, seed, P.MAIN_B[shape] if shape else 2048).to(dev)
+    table = torch.randn((spec.num_levels, spec.table_size, 2),
+                        generator=_gen(dev, seed + 1), device=dev)
+    return spec, x, table
+
+
+@pytest.mark.parametrize("spec_name,case,shape", _ROUTE, ids=_ROUTE_IDS)
+def test_encode_index_kernel(dev, spec_name, case, shape):
+    """base and packed positions ``torch.equal`` to the plain version and
+    to ``base_and_frac_t`` + ``pack_frac_t`` on the card; one launch."""
+    spec, x, _ = _route_inputs(dev, spec_name, case, shape, 50)
+    n0 = _build.LAUNCHES["encode_index"]
+    base, pos = sg.encode_index(spec, x)
+    assert _build.LAUNCHES["encode_index"] == n0 + 1
+    pb, pp = sg.encode_index_plain(spec, x)
+    bt, ft = base_and_frac_t(spec, x)
+    assert torch.equal(base, pb) and torch.equal(pos, pp)
+    assert torch.equal(base, bt) and torch.equal(pos, sg.pack_frac_t(ft))
+
+
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("spec_name,case,shape", _ROUTE, ids=_ROUTE_IDS)
+def test_span_gather_point_order_kernel(dev, spec_name, case, shape, table_dtype):
+    """spf and the point-order bf16 pairs ``torch.equal`` to the plain
+    version and to the table-mode kernel's features packed and scattered
+    back to point order; one launch of the mode, none of the table mode's."""
+    spec, x, table = _route_inputs(dev, spec_name, case, shape, 52)
+    base, pos = sg.encode_index(spec, x)
+    sk, perm = torch.sort(base, dim=-1, stable=True)
+    n0 = dict(_build.LAUNCHES)
+    spf, feats = sg.span_gather_point_order(sk, perm, pos, table, spec, table_dtype)
+    assert _build.LAUNCHES["span_gather_sorted[table,point_order]"] == \
+        n0.get("span_gather_sorted[table,point_order]", 0) + 1
+    assert _build.LAUNCHES["span_gather_sorted[table]"] == \
+        n0.get("span_gather_sorted[table]", 0)
+    ps, pf = sg.span_gather_point_order_plain(sk, perm, pos, table, spec, table_dtype)
+    assert torch.equal(spf, ps) and torch.equal(feats, pf)
+    fs = sg.span_gather_sorted_table(sk, spf[:, None, :], table, spec, table_dtype)
+    packed = sg._pack_feats(fs)
+    assert torch.equal(feats, torch.empty_like(packed).scatter_(1, perm, packed))
+
+
+@pytest.mark.parametrize("spec_name,case,shape", _ROUTE, ids=_ROUTE_IDS)
+def test_unpack_feats_t_kernel(dev, spec_name, case, shape):
+    """[B, L*2] f32 features ``torch.equal`` to the plain version
+    (``_unpack_feats`` of the transpose); one launch; B not a multiple of
+    the 64-point tile in the ragged cases."""
+    spec, x, table = _route_inputs(dev, spec_name, case, shape, 53)
+    base, pos = sg.encode_index(spec, x)
+    sk, perm = torch.sort(base, dim=-1, stable=True)
+    _, feats = sg.span_gather_point_order(sk, perm, pos, table, spec, torch.bfloat16)
+    n0 = _build.LAUNCHES["unpack_feats_t"]
+    out = sg.unpack_feats_t(feats)
+    assert _build.LAUNCHES["unpack_feats_t"] == n0 + 1
+    assert out.shape == (x.shape[0], spec.output_dim)
+    assert torch.equal(out, sg.unpack_feats_t_plain(feats))
+
+
+@pytest.mark.parametrize("spec_name,case,shape", _ROUTE, ids=_ROUTE_IDS)
+def test_transpose_grad_t_kernel(dev, spec_name, case, shape):
+    """The level-major gradient [L, B, 2] ``torch.equal`` to the plain
+    version; one launch; B not a multiple of the 64-point tile in the
+    ragged cases."""
+    spec, x, _ = _route_inputs(dev, spec_name, case, shape, 58)
+    Ls, B = spec.num_levels, x.shape[0]
+    g = torch.randn((B, Ls * 2), generator=_gen(dev, 59), device=dev)
+    n0 = _build.LAUNCHES["transpose_grad_t"]
+    gT = sg.transpose_grad_t(g, Ls)
+    assert _build.LAUNCHES["transpose_grad_t"] == n0 + 1
+    assert torch.equal(gT, sg.transpose_grad_t_plain(g, Ls))
+
+
+@pytest.mark.parametrize("spec_name,case,shape", _ROUTE, ids=_ROUTE_IDS)
+def test_encode_grad_permute_kernel(dev, spec_name, case, shape):
+    """sg and sf ``torch.equal`` to the plain version and to the gather of
+    the gradient and ``unpack_frac_t``; one launch."""
+    spec, x, _ = _route_inputs(dev, spec_name, case, shape, 54)
+    base, pos = sg.encode_index(spec, x)
+    sk, perm = torch.sort(base, dim=-1, stable=True)
+    spf = torch.gather(pos, 1, perm)
+    Ls, B = sk.shape
+    g = torch.randn((B, Ls * 2), generator=_gen(dev, 55), device=dev)
+    gT = sg.transpose_grad_t(g, Ls)
+    n0 = _build.LAUNCHES["encode_grad_permute"]
+    sgk, sfk = sg.encode_grad_permute(perm, spf, gT)
+    assert _build.LAUNCHES["encode_grad_permute"] == n0 + 1
+    sgp, sfp = sg.encode_grad_permute_plain(perm, spf, gT)
+    assert torch.equal(sgk, sgp) and torch.equal(sfk, sfp)
+    gt = g.reshape(B, Ls, 2).permute(1, 2, 0)
+    assert torch.equal(sgk, torch.gather(gt, 2, perm[:, None, :].expand(Ls, 2, B)))
+    assert torch.equal(sfk, sg.unpack_frac_t(spf))
+
+
+@pytest.mark.parametrize("spec_name,case,shape", _ROUTE, ids=_ROUTE_IDS)
+def test_sorted_encode_kernel_route_equals_pytorch_route(dev, monkeypatch, spec_name,
+                                                         case, shape):
+    """``sorted_encode`` on the same card tensors through its kernel route
+    and through its PyTorch route (forced): features and table gradients
+    ``torch.equal``; the three new counters read one each on the kernel
+    route and zero on the PyTorch route, which launches the table mode."""
+    spec, x, table = _route_inputs(dev, spec_name, case, shape, 56)
+    ct = torch.randn((x.shape[0], spec.output_dim), generator=_gen(dev, 57), device=dev)
+    res = []
+    for kernels in (True, False):
+        if not kernels:
+            monkeypatch.setattr(sg, "_kernel_route", lambda *a: False)
+        n0 = dict(_build.LAUNCHES)
+        t = table.clone().requires_grad_(True)
+        out = sg.sorted_encode(x, t, spec, torch.bfloat16, True)
+        (out * ct).sum().backward()
+        n = {k: _build.LAUNCHES[k] - n0.get(k, 0)
+             for k in (*_ROUTE_COUNTS, "span_gather_sorted[table]")}
+        assert n == {**{k: int(kernels) for k in _ROUTE_COUNTS},
+                     "span_gather_sorted[table]": int(not kernels)}, n
+        res.append((out.detach(), t.grad))
+    assert torch.equal(res[0][0], res[1][0])
+    assert torch.equal(res[0][1], res[1][1])
+
+
 @pytest.fixture
 def wrap_offsets(monkeypatch):
     """Set every spec's corner offsets to ones at the wrap: corner 0 at 0,
@@ -697,15 +839,19 @@ _SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
                       "data", "smoke.pickle")
 # the main-path kernels: launched once a step (True) or never (False)
 _GRAPH_PATHS = {
-    "sorted": ({}, {"span_gather_sorted[table]": True, "bucket_grad_matmul": True,
-                    "unroll_reduce_fm": True, "span_gather_sorted": False,
+    "sorted": ({}, {"span_gather_sorted[table,point_order]": True,
+                    "encode_index": True, "unpack_feats_t": True,
+                    "transpose_grad_t": True, "encode_grad_permute": True,
+                    "bucket_grad_matmul": True, "unroll_reduce_fm": True,
+                    "span_gather_sorted[table]": False, "span_gather_sorted": False,
                     "roll_broadcast_fm": False}),
     "rolled": ({"forward": "rolled", "input_grads": True},
                {"roll_broadcast_fm": True, "bucket_grad_matmul": True,
-                "unroll_reduce_fm": True, "span_gather_sorted[table]": False}),
+                "unroll_reduce_fm": True, "span_gather_sorted[table]": False,
+                **{k: False for k in _ROUTE_COUNTS}}),
     "xor": ({"hash_variant": "xor"},
             {"bucket_grad_matmul": True, "unroll_reduce_fm": False,
-             "span_gather_sorted[table]": False}),
+             "span_gather_sorted[table]": False, **{k: False for k in _ROUTE_COUNTS}}),
 }
 
 
@@ -1033,16 +1179,16 @@ def test_graphed_steps_at_8192_rays_equal_eager_steps(dev, monkeypatch):
 
 # ---- the marked twin of the graphed step (utils/profiling.py ranges) ----
 
-# the main path's marks a step: its 15 leaf ranges, encode.permute twice,
-# and the end mark
-_MAIN_MARKS = 17
+# the main path's marks a step: its 15 leaf ranges (encode.permute once:
+# the feature unpack; the PyTorch route runs it twice) and the end mark
+_MAIN_MARKS = 16
 
 
 def _marked_hits(steps):
     from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
 
     hits = {r: steps for r in profiling.RANGES}
-    hits.update({"encode": 0, "encode.permute": 2 * steps, "step.io": steps - 1})
+    hits.update({"encode": 0, "step.io": steps - 1})
     return hits
 
 

@@ -1,0 +1,158 @@
+"""The sorted encoder's kernel route on the CPU: the plain versions of the
+index kernel, the span gather's point-order mode, the feature unpack, the
+gradient transpose and the gradient-permute kernel (``ops/span_gather.py``) ``torch.equal`` to
+the PyTorch ops they replace on the card, and ``sorted_encode`` through
+that route equal to its PyTorch route in features and table gradients.
+
+The kernels themselves are held against these plain versions on the card
+in ``test_torch_cuda.py``.  Point sets: ``tests/_encode_points.py``.
+"""
+
+import pytest
+import torch
+
+import _encode_points as P
+from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
+from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
+    base_and_frac_t)
+
+GRID = [(s, c) for s in sorted(P.SPECS) for c in P.CASES]
+IDS = [f"{s}-{c}" for s, c in GRID]
+NEW_COUNTS = ("encode_index", "span_gather_sorted[table,point_order]",
+              "unpack_feats_t", "transpose_grad_t", "encode_grad_permute")
+
+
+def _table(spec, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((spec.num_levels, spec.table_size, 2), generator=g)
+
+
+def _glue_forward(spec, x, table, table_dtype):
+    """Today's PyTorch ops: index math, packing, the sort, the positions
+    gathered to sorted order, the table-mode gather, the bf16 pack, the
+    scatter back to point order and the unpack."""
+    base_t, frac_t = base_and_frac_t(spec, x)
+    pos = sg.pack_frac_t(frac_t)
+    sk, perm = torch.sort(base_t, dim=-1, stable=True)
+    spf = torch.gather(pos, 1, perm)
+    fs = sg.span_gather_sorted_table(sk, spf[:, None, :], table, spec, table_dtype)
+    packed_sorted = sg._pack_feats(fs)
+    packed = torch.empty_like(packed_sorted).scatter_(1, perm, packed_sorted)
+    out = sg._unpack_feats(packed.t())
+    return sk, perm, pos, spf, packed, out.reshape(x.shape[0], -1)
+
+
+@pytest.mark.parametrize("spec_name,case", GRID, ids=IDS)
+def test_encode_index_plain_equals_pytorch_ops(spec_name, case):
+    """base [L, B] and packed positions [L, B]: ``torch.equal`` to
+    ``base_and_frac_t`` followed by ``pack_frac_t``; the wrapper runs the
+    plain version for CPU tensors and counts no launch."""
+    spec = P.SPECS[spec_name]
+    x = P.points(case, spec, seed=1)
+    base_t, frac_t = base_and_frac_t(spec, x)
+    base, pos = sg.encode_index_plain(spec, x)
+    assert base.dtype == pos.dtype == torch.int32
+    assert torch.equal(base, base_t)
+    assert torch.equal(pos, sg.pack_frac_t(frac_t))
+    n0 = dict(_build.LAUNCHES)
+    w = sg.encode_index(spec, x)
+    assert torch.equal(w[0], base) and torch.equal(w[1], pos)
+    assert dict(_build.LAUNCHES) == n0
+
+
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("spec_name,case", GRID, ids=IDS)
+def test_point_order_gather_plain_equals_pytorch_ops(spec_name, case, table_dtype):
+    """spf [L, B] and the point-order bf16 pairs [L, B]: ``torch.equal`` to
+    the gather of the positions, the table-mode gather, ``_pack_feats`` and
+    ``scatter_``."""
+    spec = P.SPECS[spec_name]
+    x = P.points(case, spec, seed=2)
+    table = _table(spec, 3)
+    sk, perm, pos, spf_ref, packed_ref, _ = _glue_forward(spec, x, table, table_dtype)
+    spf, feats = sg.span_gather_point_order_plain(sk, perm, pos, table, spec, table_dtype)
+    assert spf.dtype == feats.dtype == torch.int32 and feats.shape == pos.shape
+    assert torch.equal(spf, spf_ref)
+    assert torch.equal(feats, packed_ref)
+    w = sg.span_gather_point_order(sk, perm, pos, table, spec, table_dtype)
+    assert torch.equal(w[0], spf) and torch.equal(w[1], feats)
+
+
+@pytest.mark.parametrize("spec_name,case", GRID, ids=IDS)
+def test_unpack_feats_t_plain_equals_pytorch_ops(spec_name, case):
+    """The point-order features [B, L*2] from the bf16 pairs [L, B]:
+    ``torch.equal`` to ``_unpack_feats`` of the transpose; the wrapper runs
+    the plain version for CPU tensors."""
+    spec = P.SPECS[spec_name]
+    x = P.points(case, spec, seed=3)
+    *_, packed, out_ref = _glue_forward(spec, x, _table(spec, 4), torch.bfloat16)
+    out = sg.unpack_feats_t_plain(packed)
+    assert out.dtype == torch.float32 and out.is_contiguous()
+    assert torch.equal(out, out_ref)
+    assert torch.equal(sg.unpack_feats_t(packed), out)
+
+
+@pytest.mark.parametrize("spec_name,case", GRID, ids=IDS)
+def test_transpose_grad_t_plain_equals_a_permuted_view(spec_name, case):
+    """The output gradient [B, L*2] -> [L, B, 2], ``torch.equal`` to the
+    view ``g.reshape(B, L, 2).transpose(0, 1)``; the wrapper runs the plain
+    version for CPU tensors."""
+    spec = P.SPECS[spec_name]
+    L, B = spec.num_levels, P.points(case, spec).shape[0]
+    g = torch.randn((B, L * 2), generator=torch.Generator().manual_seed(5))
+    gT = sg.transpose_grad_t_plain(g, L)
+    assert gT.shape == (L, B, 2) and gT.is_contiguous()
+    assert torch.equal(gT, g.reshape(B, L, 2).transpose(0, 1))
+    assert torch.equal(sg.transpose_grad_t(g, L), gT)
+
+
+@pytest.mark.parametrize("spec_name,case", GRID, ids=IDS)
+def test_grad_permute_plain_equals_pytorch_ops(spec_name, case):
+    """sg [L, 2, B] and sf [L, 3, B] from the level-major gradient:
+    ``torch.equal`` to the gather of the output gradient by the
+    permutation and ``unpack_frac_t``."""
+    spec = P.SPECS[spec_name]
+    x = P.points(case, spec, seed=4)
+    L, B = spec.num_levels, x.shape[0]
+    _, perm, _, spf, _, _ = _glue_forward(spec, x, _table(spec, 5), torch.bfloat16)
+    g = torch.randn((B, L * 2), generator=torch.Generator().manual_seed(6))
+    gt = g.reshape(B, L, 2).permute(1, 2, 0)
+    sg_ref = torch.gather(gt, 2, perm[:, None, :].expand(L, 2, B))
+    gT = sg.transpose_grad_t_plain(g, L)
+    sgr, sf = sg.encode_grad_permute_plain(perm, spf, gT)
+    assert sgr.is_contiguous() and sf.is_contiguous()
+    assert torch.equal(sgr, sg_ref)
+    assert torch.equal(sf, sg.unpack_frac_t(spf))
+    w = sg.encode_grad_permute(perm, spf, gT)
+    assert torch.equal(w[0], sgr) and torch.equal(w[1], sf)
+
+
+@pytest.mark.parametrize("spec_name,case", GRID, ids=IDS)
+def test_sorted_encode_kernel_route_equals_pytorch_route(monkeypatch, spec_name, case):
+    """``sorted_encode`` with its kernel route forced on the CPU (the three
+    wrappers then run their plain versions) ``torch.equal`` to its PyTorch
+    route in features and table gradients, on [rays, samples, 3] points;
+    the CPU takes the PyTorch route by itself and counts no new launch."""
+    spec = P.SPECS[spec_name]
+    x = P.points(case, spec, seed=7)
+    x = x[: x.shape[0] // 4 * 4].reshape(4, -1, 3)
+    ct = torch.randn((*x.shape[:-1], spec.output_dim),
+                     generator=torch.Generator().manual_seed(8))
+    table = _table(spec, 9)
+    routes, route = [], sg._kernel_route
+    for forced in (False, True):
+        seen = []
+        monkeypatch.setattr(sg, "_kernel_route",
+                            lambda *a: seen.append(route(*a)) or forced)
+        n0 = {k: _build.LAUNCHES[k] for k in NEW_COUNTS}
+        t = table.clone().requires_grad_(True)
+        out = sg.sorted_encode(x, t, spec, torch.bfloat16, True)
+        (out * ct).sum().backward()
+        assert seen == [False]
+        assert {k: _build.LAUNCHES[k] for k in NEW_COUNTS} == n0
+        assert out.shape == ct.shape
+        routes.append((out.detach(), t.grad))
+    assert torch.equal(routes[0][0], routes[1][0])
+    assert torch.equal(routes[0][1], routes[1][1])
