@@ -5,7 +5,7 @@
 
 For each seed, at the cell's own size and on its card, one process reads
 the numbers that ``run.py`` compares (``reference.compare``) three ways
-against the plain reference in f32:
+against the configuration's plain reference (``cell.reference``) in f32:
 
 - ``program``: the program's first steps, as a run takes them (the lower
   readings: the largest over the seeds);
@@ -46,8 +46,9 @@ def seed_readings(prog, cell, seed: int, device: torch.device) -> Dict[str, Dict
     proj, weights, draws = run.reference_inputs(cell, seed, device, s)
 
     def readings(**kw):
-        return reference.reference_readings(cell.cfg, proj, weights, draws, s.order,
-                                            steps=run.CHECK_STEPS, steps_per_epoch=spe, **kw)
+        return cell.reference.reference_readings(cell.cfg, proj, weights, draws, s.order,
+                                                 steps=run.CHECK_STEPS, steps_per_epoch=spe,
+                                                 **kw)
 
     ref = readings()
     out = {"program": reference.compare(s.readings, ref)}

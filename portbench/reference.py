@@ -18,6 +18,16 @@ configuration states, in plain PyTorch with TF32 off.
   coherent hash encoder forward and backward, MLP, Beer-Lambert sum,
   MSE, Adam), with a control in TF32 and a step that leaves half of the
   batch out.
+
+It covers the coherent linear hash in 3-D, untilted cone-beam scans and
+the MSE loss with no fine pass; it refuses other hashes and scans.  A
+configuration that needs more (NAF's XOR-prime hash, a tilted or
+laminographic scan, the coarse-to-fine pass, the TV loss) names a module
+of its own under its key ``reference`` (``run.load_reference``), which
+supplies ``make_scan``, ``make_weights``, ``layer_dims``, ``corner_rows``
+and ``reference_readings`` and may take any of them from here.  The
+seeded streams, :func:`draw_epoch` and the judging (:func:`compare`,
+:func:`norms`, :func:`change_norms`) are always this module's.
 """
 
 from __future__ import annotations
@@ -278,6 +288,12 @@ class HashGrid:
             t = [frac[..., d] if self.bits[k, d] else 1.0 - frac[..., d] for d in range(3)]
             w.append(t[0] * t[1] * t[2])
         return rows, torch.stack(w, -1)
+
+
+def corner_rows(cfg: Dict, x01: torch.Tensor) -> torch.Tensor:
+    """Flat table rows [P, L, 8] of the corners of points ``x01`` [P, 3] in
+    [0, 1], for the count of distinct rows a step touches."""
+    return HashGrid(cfg["encoder"]).corners(x01)[0]
 
 
 class _Encode(torch.autograd.Function):

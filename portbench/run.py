@@ -26,8 +26,9 @@ The window feeds each epoch's draws (made from the seed between epochs),
 as the compared steps are fed: the timed graph is the epoch function's
 graph with fed draws.
 
-Then the program's state is freed and the plain reference
-(``reference.py``) follows the first steps on the card; ``correct`` holds
+Then the program's state is freed and the configuration's plain reference
+(the module its key ``reference`` names, ``reference.py`` without the key)
+follows the first steps on the card; ``correct`` holds
 when each number compared lies within its limit and no loss of the window
 was non-finite.  The last line of standard output is the result, as JSON,
 printed only when no module of JAX or of the JAX package is loaded by then.
@@ -61,11 +62,13 @@ _T_START = time.perf_counter() - process_age_s()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
+import hashlib  # noqa: E402
 import importlib  # noqa: E402
+import importlib.util  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
-from types import SimpleNamespace  # noqa: E402
+from types import ModuleType, SimpleNamespace  # noqa: E402
 from typing import Dict, List, Tuple  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -82,15 +85,58 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "neuralvolumetricreconstructionformedicali
 # The steps the reference follows, and the epochs a traced run traces.
 CHECK_STEPS = 3
 TRACE_EPOCHS = 4
+# What a configuration's own plain reference supplies.  The seeded streams,
+# the draws and the judging (``generator``, ``draw_epoch``, ``compare``,
+# ``norms``, ``change_norms``) are always ``reference.py``'s, so that every
+# cell is judged alike.
+REFERENCE_API = ("make_scan", "make_weights", "layer_dims", "corner_rows",
+                 "reference_readings")
 
 
 # --------------------------------------------------------------------------
 # The cell
 # --------------------------------------------------------------------------
 
+def load_reference(config: str, cfg: Dict) -> ModuleType:
+    """The plain reference of configuration ``config``: the module whose
+    path, relative to the harness's folder, its file ``cfg`` gives under
+    ``reference``, loaded by path once per process under a name of its
+    own; ``reference.py`` itself where the key is absent."""
+    rel = cfg.get("reference")
+    if rel is None:
+        return reference
+    where = f"configuration {config!r}, key 'reference' ({rel!r})"
+    if not isinstance(rel, str) or not rel:
+        raise ValueError(f"{where}: not a path")
+    if Path(rel).is_absolute() or ".." in Path(rel).parts:
+        raise ValueError(f"{where}: not a relative path inside {HERE.name}/")
+    path = (HERE / rel).resolve()
+    if not path.is_relative_to(HERE):
+        raise ValueError(f"{where}: resolves to {path}, outside {HERE.name}/")
+    if not path.is_file():
+        raise FileNotFoundError(f"{where}: no file {path}")
+    mod_name = (f"portbench_reference_{path.stem}_"
+                f"{hashlib.sha1(str(path).encode()).hexdigest()[:12]}")
+    mod = sys.modules.get(mod_name)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[mod_name] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except Exception as exc:
+            del sys.modules[mod_name]
+            raise ImportError(f"{where}: loading it raised {exc!r}") from exc
+    missing = [n for n in REFERENCE_API if not callable(getattr(mod, n, None))]
+    if missing:
+        raise ImportError(f"{where}: the module lacks {', '.join(missing)}")
+    return mod
+
+
 def load_cell(name: str, root: Path = ROOT) -> SimpleNamespace:
     """The cell ``name`` of ``root/BENCHMARK.json`` with its configuration,
-    traffic, limits and metrics."""
+    its plain reference (``load_reference``), traffic, limits and
+    metrics."""
     with open(root / "BENCHMARK.json") as f:
         bench = json.load(f)
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -100,6 +146,7 @@ def load_cell(name: str, root: Path = ROOT) -> SimpleNamespace:
     conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     with open(root / conf["file"]) as f:
         cfg = json.load(f)
+    ref = load_reference(conf["name"], cfg)
     with open(HERE / "traffic" / f"{cell['traffic']}.json") as f:
         traffic = json.load(f)
     with open(HERE / "limits" / f"{name}.json") as f:
@@ -108,7 +155,7 @@ def load_cell(name: str, root: Path = ROOT) -> SimpleNamespace:
     def mine(m):
         return "workloads" not in m or name in m["workloads"]
 
-    return SimpleNamespace(name=name, chips=int(cell["chips"]), cfg=cfg,
+    return SimpleNamespace(name=name, chips=int(cell["chips"]), cfg=cfg, reference=ref,
                            traffic=traffic, limits=limits, metrics_dir=HERE / "metrics",
                            end_to_end=[m for m in bench["end_to_end"] if mine(m)],
                            per_layer=[m for m in bench["per_layer"] if mine(m)])
@@ -242,8 +289,8 @@ def set_up(prog, cell, seed: int, device: torch.device) -> SimpleNamespace:
     them, and its first steps with the readings the comparison takes."""
     cfg = cell.cfg
     n_samples = int(cfg["render"]["n_samples"])
-    data, proj = reference.make_scan(cfg, seed, device)
-    weights = reference.make_weights(cfg, seed, device)
+    data, proj = cell.reference.make_scan(cfg, seed, device)
+    weights = cell.reference.make_weights(cfg, seed, device)
     program = Program(prog, cell, data, weights, seed, device)
     del weights
     pool_counts = (proj.reshape(proj.shape[0], -1) != 0).sum(1)
@@ -261,8 +308,8 @@ def reference_inputs(cell, seed: int, device: torch.device, s) -> tuple:
     """The reference's inputs, made again from ``seed``: the projections,
     the initial weights and the first epoch's draws."""
     cfg = cell.cfg
-    _, proj = reference.make_scan(cfg, seed, device)
-    weights = reference.make_weights(cfg, seed, device)
+    _, proj = cell.reference.make_scan(cfg, seed, device)
+    weights = cell.reference.make_weights(cfg, seed, device)
     draws = reference.draw_epoch(reference.generator(seed, reference.DRAWS, device),
                                  s.pool_counts, s.order, int(cell.traffic["n_rays"]),
                                  int(cfg["render"]["n_samples"]))
@@ -352,12 +399,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
 
     def points(i, x01):
         if trace:
-            rows, _ = reference.HashGrid(cfg["encoder"]).corners(x01)
-            seen[i] = counts.distinct_rows(rows)
+            seen[i] = counts.distinct_rows(cell.reference.corner_rows(cfg, x01))
 
-    ref = reference.reference_readings(cfg, proj, weights, draws, order,
-                                       steps=CHECK_STEPS, steps_per_epoch=spe,
-                                       points=points)
+    ref = cell.reference.reference_readings(cfg, proj, weights, draws, order,
+                                            steps=CHECK_STEPS, steps_per_epoch=spe,
+                                            points=points)
     gaps = reference.compare(s.readings, ref)
     phases["reference_s"] = time.perf_counter() - t_ref
     correct = failed == 0 and all(gaps[k] <= float(cell.limits[k]) for k in gaps)
@@ -395,7 +441,7 @@ def work_of(cell, seen: Dict) -> Dict:
     (``hash_encoder``), from the widths and the points of the compared
     steps."""
     cfg, enc = cell.cfg, cell.cfg["encoder"]
-    dims = reference.layer_dims(cfg)
+    dims = cell.reference.layer_dims(cfg)
     levels, channels = int(enc["num_levels"]), int(enc["level_dim"])
     rows = 1 << int(enc["log2_hashmap_size"])
     points = (int(cell.traffic["n_rays"]) * int(cell.traffic["n_batch"])
@@ -434,7 +480,7 @@ def main(argv=None) -> int:
     try:
         cell = load_cell(args.workload)
         import_program()
-    except (KeyError, OSError, ImportError) as exc:
+    except (KeyError, OSError, ImportError, ValueError) as exc:
         print(f"portbench: {exc}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:

@@ -11,13 +11,14 @@ sys.path.insert(0, str(HERE))
 
 import run  # noqa: E402
 
-CELLS = ("abdomen_50.r1024", "chest_50.r1024")
+CELLS = ("abdomen_50.r1024", "chest_50.r1024", "chest_50.r4096")
 
 
-def tiny(name: str):
-    """Cell ``name`` with its widths, table width and limits as published,
-    cut in table rows, samples, rays, detector pixels and views."""
-    cell = run.load_cell(name)
+def tiny(name: str, root: Path = run.ROOT):
+    """Cell ``name`` of ``root/BENCHMARK.json`` with its widths, table width
+    and limits as published, cut in table rows, samples, rays, detector
+    pixels and views."""
+    cell = run.load_cell(name, root)
     cfg = cell.cfg
     cfg["encoder"]["log2_hashmap_size"] = 12
     cfg["render"]["n_samples"] = 16

@@ -39,6 +39,23 @@ def test_harness_with_the_program_loads_no_jax():
     assert run.PROGRAM in names
 
 
+def _first_cell_of_each_configuration():
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    first = {}
+    for w in bench["workloads"]:
+        first.setdefault(w["config"], w["name"])
+    return sorted(first.values())
+
+
+@pytest.mark.parametrize("cell", _first_cell_of_each_configuration())
+def test_each_configurations_reference_loads_neither_jax_nor_the_program(cell):
+    """The plain reference that each configuration names (``reference.py``
+    without the key), loaded as a run loads it."""
+    names = _loaded(f"import run; print(run.load_cell({cell!r}).reference.__name__)")
+    assert not names & JAX_NAMES
+    assert run.PROGRAM not in names
+
+
 def _run_py(cwd, *extra):
     cmd = [sys.executable, "portbench/run.py", "--workload", "chest_50.r1024",
            "--seed", "1", "--seconds", "1", "--trace", "0", *extra]
