@@ -126,8 +126,9 @@ class HashEncoderSpec(EncoderSpec):
         6. Otherwise the oracle ``coherent_encode_reference``.
 
         Layer ranges: the scaling to the unit cube closes ``sample``; path 4
-        runs its own, ``encode.index`` to ``encode.permute``, every other
-        path one ``encode``.
+        runs its own, ``encode.index`` to ``encode.permute``, path 1 its own,
+        ``encode.index`` and ``encode.gather``, every other path one
+        ``encode``.
         """
         with layer_range("sample"):
             x01 = torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
@@ -139,14 +140,14 @@ class HashEncoderSpec(EncoderSpec):
                 and self.forward == "sorted" and not self.input_grads and tiles):
             # its own ranges, encode.index to encode.permute
             return sorted_encode(x01, table, self.grid, self._table_dtype, self.pack_sort)
+        if self.hash_variant == "xor":
+            # its own ranges, encode.index and encode.gather
+            if self.fast and self.backward != "take" and tiles:
+                return hash_encode_fast(x01, table, self.grid)
+            return hash_encode(x01, table, self.grid)
         with layer_range("encode"):
             x01 = x01.reshape(-1, self.grid.input_dim)
-            if self.hash_variant == "xor":
-                if self.fast and self.backward != "take" and tiles:
-                    out = hash_encode_fast(x01, table, self.grid)
-                else:
-                    out = hash_encode(x01, table, self.grid)
-            elif coherent:
+            if coherent:
                 if "rolled" in params:  # frozen eval params (see ``freeze``)
                     out = coherent_encode_prebuilt(x01, params["rolled"], self.grid)
                 elif self.fast and self.backward == "take":

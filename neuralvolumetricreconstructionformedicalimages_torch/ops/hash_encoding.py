@@ -29,6 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import layer_range, range_mark
+
 # XOR-prime multipliers for up to 3 input dims (the reference hash).
 _HASH_PRIMES = (1, 19349663, 83492791)
 
@@ -162,19 +164,24 @@ def _indices_weights_frac(spec: HashGridSpec, x01: torch.Tensor):
 
 def _he_forward(x01: torch.Tensor, table: torch.Tensor, spec: HashGridSpec):
     """One gather over the padded table and the weighted corner sum:
-    features [B, L*C] and (idx, w, frac, vals [B, L, K, C])."""
-    B = x01.shape[0]
+    features [..., L*C] of points ``x01`` [..., D] and (idx, w, frac, vals
+    [B, L, K, C]).  Layer ranges: ``encode.index`` (corners, weights and
+    the dense or hashed rows), ``encode.gather`` (the gather and the sum)."""
     L, S, C = table.shape
-    idx, w, frac = _indices_weights_frac(spec, x01)                # [B, L, K]
-    level_off = torch.arange(L, device=idx.device)[None, :, None] * S
-    vals = table.reshape(L * S, C)[idx.long() + level_off]         # [B, L, K, C]
-    out = torch.sum(w[..., None].to(vals.dtype) * vals, dim=2)     # [B, L, C]
-    return out.reshape(B, L * C), (idx, w, frac, vals)
+    with layer_range("encode.index"):
+        shape = (*x01.shape[:-1], L * C)
+        x01 = x01.reshape(-1, spec.input_dim)
+        idx, w, frac = _indices_weights_frac(spec, x01)            # [B, L, K]
+    with layer_range("encode.gather"):
+        level_off = torch.arange(L, device=idx.device)[None, :, None] * S
+        vals = table.reshape(L * S, C)[idx.long() + level_off]     # [B, L, K, C]
+        out = torch.sum(w[..., None].to(vals.dtype) * vals, dim=2)  # [B, L, C]
+        return out.reshape(shape), (idx, w, frac, vals)
 
 
 def hash_encode(x01: torch.Tensor, table: torch.Tensor,
                 spec: HashGridSpec) -> torch.Tensor:
-    """Encode points ``x01`` in [0, 1]^D -> features [B, L*C].
+    """Encode points ``x01`` [..., D] in [0, 1]^D -> features [..., L*C].
 
     Plain path: one gather over the padded table and a weighted sum;
     autograd's scatter-add is the backward (atomic on the card, so its
@@ -208,6 +215,7 @@ class _HashEncodeFast(torch.autograd.Function):
         ctx.save_for_backward(*res)
         ctx.spec = spec
         ctx.table_shape = tuple(table.shape)
+        ctx.x_shape = x01.shape
         return out
 
     @staticmethod
@@ -215,6 +223,7 @@ class _HashEncodeFast(torch.autograd.Function):
         from .bucket_matmul import bucket_grad_matmul
         from .coherent_hash import corner_weight_grads
 
+        range_mark("backward.encode.sort")
         idx, w, frac, vals = ctx.saved_tensors
         spec = ctx.spec
         L, S, C = ctx.table_shape
@@ -224,6 +233,7 @@ class _HashEncodeFast(torch.autograd.Function):
         # Table gradient: the corner-expanded stream, sorted per level and
         # summed by the bucket kernel with weight 1 (w is in the payload).
         sk, sg = sorted_corner_stream(idx, w, g)                   # [L, B*K]
+        range_mark("backward.encode.bucket")
         sf = torch.empty((L, 0, B * K), dtype=torch.float32, device=g.device)
         grad_flat = bucket_grad_matmul(sk, sf, sg, table_size=S,
                                        input_dim=0)                # [L, C, S]
@@ -237,7 +247,7 @@ class _HashEncodeFast(torch.autograd.Function):
                                  corner_weight_grads(spec, frac))
         scales = _scales_on(spec, g.device)
         grad_x01 = torch.sum(grad_frac * scales[None, :, None], dim=1)
-        return grad_x01, grad_table, None
+        return grad_x01.reshape(ctx.x_shape), grad_table, None
 
 
 def hash_encode_fast(x01: torch.Tensor, table: torch.Tensor,
@@ -248,6 +258,9 @@ def hash_encode_fast(x01: torch.Tensor, table: torch.Tensor,
     2^D-corner-expanded update stream of every level (int32 keys, stable)
     and sums each key's run in stream order with ``bucket_grad_matmul`` at
     ``input_dim=0`` (the weights are already in the payload), so it is
-    bitwise reproducible.  Position gradients are analytic.
+    bitwise reproducible.  Position gradients are analytic.  Besides the
+    forward's layer ranges, the backward marks ``backward.encode.sort``
+    (the sorted stream) and ``backward.encode.bucket`` (the bucket kernel
+    and what follows it).
     """
     return _HashEncodeFast.apply(x01, table, spec)

@@ -58,11 +58,13 @@ import torch
 
 # The device ranges, in the order in which they tile the main path's step
 # (``encode`` stands for the four ``encode.*`` ranges on the encoder's
-# other paths); ``step.io`` takes the time between steps.
+# other paths; the XOR path marks ``encode.index``, ``encode.gather``,
+# ``backward.encode.sort`` and ``backward.encode.bucket``); ``step.io``
+# takes the time between steps.
 RANGES = ("batch", "sample", "encode.index", "encode.sort", "encode.permute",
           "encode.gather", "encode", "mlp", "render", "loss", "backward.render",
-          "backward.mlp", "backward.encode.permute", "backward.encode.bucket",
-          "backward.encode.unroll", "optim", "step.io")
+          "backward.mlp", "backward.encode.permute", "backward.encode.sort",
+          "backward.encode.bucket", "backward.encode.unroll", "optim", "step.io")
 PREFIX = "nvr."
 # Marks a step may launch, its end mark included.
 MAX_MARKS = 64

@@ -1182,13 +1182,17 @@ def test_graphed_steps_at_8192_rays_equal_eager_steps(dev, monkeypatch):
 # the main path's marks a step: its 15 leaf ranges (encode.permute once:
 # the feature unpack; the PyTorch route runs it twice) and the end mark
 _MAIN_MARKS = 16
+# the XOR path's leaf ranges, each marked once a step
+_XOR_RANGES = ("batch", "sample", "encode.index", "encode.gather", "mlp", "render",
+               "loss", "backward.render", "backward.mlp", "backward.encode.sort",
+               "backward.encode.bucket", "optim")
 
 
 def _marked_hits(steps):
     from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
 
     hits = {r: steps for r in profiling.RANGES}
-    hits.update({"encode": 0, "step.io": steps - 1})
+    hits.update({"encode": 0, "backward.encode.sort": 0, "step.io": steps - 1})
     return hits
 
 
@@ -1229,6 +1233,30 @@ def test_marked_twin_launches_marks_only_when_asked(dev):
                    and ev.name.startswith(profiling.PREFIX)]
     assert all(ev.is_user_annotation for ev in annotations)
     assert _build.LAUNCHES["range_mark"] == n0 + 6 * _MAIN_MARKS
+
+
+def test_xor_marked_twin_marks_its_encoder(dev):
+    """The XOR path's marked twin launches one mark a leaf range and the
+    end mark, and one bucket kernel, as its plain graph does; its replays
+    charge each of its ranges once a step and ``encode`` never."""
+    from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
+
+    order = torch.arange(5, device=dev)[:, None]
+    enc = {"hash_variant": "xor", "table_dtype": "float32", "pack_sort": False}
+    arrays, _, epoch_fn, _, _ = _epoch_parts(dev, enc)
+    epoch_fn(arrays, order[:1], 0)                   # the eager step and both captures
+    graphed = epoch_fn.graphed
+    assert graphed.launches["range_mark"] == 0
+    assert graphed.twin_launches["range_mark"] == len(_XOR_RANGES) + 1
+    assert graphed.twin_launches["bucket_grad_matmul"] == 1
+    assert graphed.launches["bucket_grad_matmul"] == 1
+    epoch_fn(arrays, order[1:2], 1)                  # plain: the next marked replay resets
+    with profiling.ranges():
+        epoch_fn(arrays, order[2:5], 2)
+    t = profiling.range_totals(dev)
+    assert t["steps"] == 3
+    assert t["hits"] == {r: 3 if r in _XOR_RANGES else 0 for r in profiling.RANGES} | {
+        "step.io": 2}, t
 
 
 def test_marked_step_ranges_sum_to_its_time(dev):

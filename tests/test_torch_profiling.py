@@ -25,8 +25,13 @@ SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAIN_PATH = ["batch", "sample", "encode.index", "encode.sort", "encode.permute",
              "encode.gather", "encode.permute", "mlp", "render", "loss", "optim"]
 # The device ranges the main path's step marks, each once but one.
-MAIN_HITS = {r: 1 for r in profiling.RANGES if r not in ("encode", "step.io")}
+MAIN_HITS = {r: 1 for r in profiling.RANGES
+             if r not in ("encode", "backward.encode.sort", "step.io")}
 MAIN_HITS["encode.permute"] = 2
+# The device ranges the XOR path's step marks, each once, in step order.
+XOR_HITS = {r: 1 for r in ("batch", "sample", "encode.index", "encode.gather", "mlp",
+                           "render", "loss", "backward.render", "backward.mlp",
+                           "backward.encode.sort", "backward.encode.bucket", "optim")}
 
 
 def test_time_fn_on_cpu():
@@ -72,9 +77,9 @@ def test_device_times_on_the_card():
 
 # ---- layer ranges ----
 
-def _parts(n_fine=0):
-    """A tiny main-path field on the smoke scan, on the CPU: (arrays, the
-    eager step, the epoch function)."""
+def _parts(n_fine=0, encoder=None):
+    """A tiny main-path field on the smoke scan, on the CPU, its encoder
+    updated by ``encoder``: (arrays, the eager step, the epoch function)."""
     cfg = with_defaults({
         "exp": {"expname": "r", "expdir": ".", "datadir": SMOKE},
         "network": {"net_type": "mlp", "num_layers": 4, "hidden_dim": 16,
@@ -82,7 +87,8 @@ def _parts(n_fine=0):
                     "bound": 0.3},
         "encoder": {"encoding": "hashgrid", "input_dim": 3, "num_levels": 3,
                     "level_dim": 2, "base_resolution": 8, "log2_hashmap_size": 14,
-                    "forward": "sorted", "table_dtype": "bfloat16", "pack_sort": True},
+                    "forward": "sorted", "table_dtype": "bfloat16", "pack_sort": True,
+                    **(encoder or {})},
         "render": {"n_samples": 32, "n_fine": n_fine, "perturb": True,
                    "raw_noise_std": 0.0, "netchunk": 4096},
         "train": {"epoch": 1, "n_batch": 1, "n_rays": 64, "lrate": 1e-2,
@@ -183,6 +189,28 @@ def test_host_clock_marks_charge_every_range():
     assert all(v > 0 for r, v in t["device_ms"].items() if t["hits"][r])
 
 
+def test_xor_path_marks_its_encoder_apart_from_the_mlp():
+    """The XOR path's step (``hash_encode_fast``): its forward marks
+    ``encode.index`` and ``encode.gather``, its backward
+    ``backward.encode.sort`` and ``backward.encode.bucket``, each once a
+    step, and never ``encode``; the encoder's backward begins after the
+    MLP's, so ``backward.mlp`` holds the MLP's backward alone."""
+    arrays, step, _ = _parts(encoder={"hash_variant": "xor", "table_dtype": "float32",
+                                      "pack_sort": False})
+    step(arrays, torch.tensor([0]))
+    profiling.reset_ranges("cpu")
+    for i in range(2):
+        with profiling.marking("cpu"):
+            step(arrays, torch.tensor([i]))
+    t = profiling.range_totals("cpu")
+    assert t["hits"] == {**{r: 2 * XOR_HITS.get(r, 0) for r in profiling.RANGES},
+                         "step.io": 1}
+    h = profiling.range_buffer("cpu").numpy()
+    ids = [profiling.RANGES[int(r)] for r in
+           h[profiling.MAX_MARKS:profiling.MAX_MARKS + sum(XOR_HITS.values())]]
+    assert ids == list(XOR_HITS)
+
+
 def test_fine_pass_marks_both_fields():
     """With the fine pass each field runs its own encoder and MLP ranges:
     ``mlp`` and ``encode.gather`` are hit twice, every forward range at
@@ -240,7 +268,7 @@ def test_range_totals_is_shaped():
         assert list(t["device_ms"]) == list(profiling.RANGES) == list(t["hits"])
         assert all(isinstance(v, float) and v >= 0 for v in t["device_ms"].values())
         assert all(isinstance(v, int) and v >= 0 for v in t["hits"].values())
-    assert profiling.RANGES[-1] == "step.io" and len(set(profiling.RANGES)) == 17
+    assert profiling.RANGES[-1] == "step.io" and len(set(profiling.RANGES)) == 18
 
 
 def test_ranges_on_in_a_ranges_block_or_under_a_profiler():
