@@ -66,8 +66,11 @@ the real scan at scale and the batch sweep (last):
 
 a. the kernels in the modes the other paths run: the bucket with a bf16
    output (bit-equal: one rounding of the same f32 sums), the unroll on that bf16
-   gradient (atol 1e-5), and the bucket at D=0 on the 1,572,864-long XOR
-   stream of the same points (bit-equal, bit-identical twice);
+   gradient (atol 1e-5), the XOR path's index kernel (``xor_index``: corner
+   rows, weights and in-cell positions, ``torch.equal`` to its plain
+   version) on the same points, and the bucket at D=0 on the
+   1,572,864-long XOR stream of those points (bit-equal, bit-identical
+   twice);
 b. ``scatter_level`` at N = 1,572,864, S = 2^19, C = 2: ``torch.equal`` to
    the in-order sum (the plain version on a CPU copy) on normal payloads
    and with a 700-update column, bit-identical across two launches; beside
@@ -258,7 +261,7 @@ _SOURCE = {"roll_broadcast_fm": "roll_kernels", "unroll_reduce_fm": "roll_kernel
            "span_gather_sorted": "span_gather", "bucket_grad_matmul": "bucket_matmul",
            "scatter_level": "scatter_level", "encode_index": "encode_io",
            "unpack_feats_t": "encode_io", "transpose_grad_t": "encode_io",
-           "encode_grad_permute": "encode_io"}
+           "encode_grad_permute": "encode_io", "xor_index": "encode_io"}
 _TPU = "neuralvolumetricreconstructionformedicalimages_tpu/"
 _REPLACES = {"roll_broadcast_fm": _TPU + "ops/roll_kernels.py:152",
              "span_gather_sorted": _TPU + "ops/span_gather.py:282",
@@ -272,7 +275,9 @@ _REPLACES = {"roll_broadcast_fm": _TPU + "ops/roll_kernels.py:152",
              "transpose_grad_t": "no TPU kernel: a strided read of the gradient "
                                  "inside the PyTorch gather",
              "encode_grad_permute": "no TPU kernel: PyTorch ops (ops/span_gather.py::"
-                                    "unpack_frac_t, a gather of the gradient)"}
+                                    "unpack_frac_t, a gather of the gradient)",
+             "xor_index": "no TPU kernel: PyTorch ops (ops/hash_encoding.py::"
+                          "_indices_weights_frac_plain)"}
 # Phase (f): the two shared-card ranks' group times out after this; the
 # parent kills them after PARALLEL_JOIN_S.
 PARALLEL_GROUP_TIMEOUT_S, PARALLEL_JOIN_S = 120, 300
@@ -281,7 +286,8 @@ MAIN_NEEDS = {"span_gather_sorted[table,point_order]": True, "encode_index": Tru
               "unpack_feats_t": True, "transpose_grad_t": True,
               "encode_grad_permute": True, "bucket_grad_matmul": True,
               "unroll_reduce_fm": True, "span_gather_sorted[table]": False,
-              "span_gather_sorted": False, "roll_broadcast_fm": False}
+              "span_gather_sorted": False, "roll_broadcast_fm": False,
+              "xor_index": False}
 # The kernels of the main path's route around its sort
 ROUTE = ("span_gather_sorted[table,point_order]", "encode_index", "unpack_feats_t",
          "transpose_grad_t", "encode_grad_permute")
@@ -290,13 +296,14 @@ ROUTE = ("span_gather_sorted[table,point_order]", "encode_index", "unpack_feats_
 TRAIN_STEPS = 20
 PATHS = {
     "xor": ({"hash_variant": "xor"},
-            {"bucket_grad_matmul": True, "span_gather_sorted": False,
+            {"bucket_grad_matmul": True, "xor_index": True, "span_gather_sorted": False,
              "span_gather_sorted[table]": False, "unroll_reduce_fm": False,
              "roll_broadcast_fm": False, **{k: False for k in ROUTE}}),
     "rolled": ({"forward": "rolled", "input_grads": True, "table_dtype": "bfloat16"},
                {"roll_broadcast_fm": True, "bucket_grad_matmul": True,
                 "unroll_reduce_fm": True, "span_gather_sorted": False,
-                "span_gather_sorted[table]": False, **{k: False for k in ROUTE}}),
+                "span_gather_sorted[table]": False, "xor_index": False,
+                **{k: False for k in ROUTE}}),
     "take": ({"backward": "take"},
              {k: False for k in (*_SOURCE, "span_gather_sorted[table]", *ROUTE)}),
 }
@@ -384,6 +391,7 @@ def _launch_key(kernel: str):
                       ("unpack_feats_kernel", "unpack_feats_t"),
                       ("transpose_grad_kernel", "transpose_grad_t"),
                       ("encode_grad_permute_kernel", "encode_grad_permute"),
+                      ("xor_index_kernel", "xor_index"),
                       ("bucket_kernel<", "bucket_grad_matmul"),
                       ("unroll_reduce_kernel<", "unroll_reduce_fm"),
                       ("roll_broadcast_kernel", "roll_broadcast_fm"),
@@ -1785,7 +1793,7 @@ def main() -> int:
     from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
         corner_offsets)
     from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding import (
-        hash_grid_indices, sorted_corner_stream)
+        _indices_weights_frac_plain, hash_grid_indices, sorted_corner_stream, xor_index)
     from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
         Trainer, build_model, pin_fp32)
     from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
@@ -1971,6 +1979,18 @@ def main() -> int:
            unroll_index_add_call(h1, spec, C),
            L * F * S * 2 + L * S * C * 4, L * S * C * (K - 1), mode="bf16_in")
     del h1, u
+    # the XOR path's index kernel on the same points: idx, w and frac
+    # torch.equal to its plain version
+    xi, xp = xor_index(spec, x01), _indices_weights_frac_plain(spec, x01)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(xi, xp)):
+        raise AssertionError("xor_index is not bit-equal to its plain version")
+    del xi, xp
+    # bound: the points read once; idx and w [B, L, 8], frac [B, L, 3]
+    # written once
+    record("xor_index", 0.0, lambda: xor_index(spec, x01),
+           lambda: _indices_weights_frac_plain(spec, x01), None,
+           B * D * 4 + B * L * (K * 4 * 2 + D * 4), 0, plain_iters=3)
     # bucket at D=0 on the XOR stream of the same points (the XOR backward)
     xidx, xw = hash_grid_indices(spec, x01)
     xsk, xsg = sorted_corner_stream(xidx, xw, grads.permute(2, 0, 1))
@@ -2170,6 +2190,8 @@ def main() -> int:
                     int(plaunch.get(kname, 0))
         if pname == "rolled":   # the roll build's path since the main path skips it
             results["roll_broadcast_fm"]["launches"] = int(plaunch["roll_broadcast_fm"])
+        if pname == "xor":
+            results["xor_index"]["launches"] = int(plaunch["xor_index"])
         del tr
         torch.cuda.empty_cache()
 

@@ -53,6 +53,7 @@ ENTRIES: Dict[str, Tuple[str, list]] = {
     "nvr_encode_grad_permute": ("encode_io", [_P] * 5 + [_I, _L, _P]),
     "nvr_unpack_feats": ("encode_io", [_P] * 2 + [_I, _L, _P]),
     "nvr_transpose_grad": ("encode_io", [_P] * 2 + [_I, _L, _P]),
+    "nvr_xor_index": ("encode_io", [_P] * 7 + [_I, _L, _L, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

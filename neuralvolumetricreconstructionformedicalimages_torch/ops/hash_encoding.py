@@ -6,7 +6,8 @@ Port of the JAX ``ops/hash_encoding.py``:
   ``ceil(scale) + 1``, per-level live size ``min(2^S, (res+1)^D)`` and the
   uniformly padded ``[L, 2^S, C]`` table initialised U(-1e-4, 1e-4);
 - :func:`hash_grid_indices`: corner indices, dense row-major while
-  ``(res+1)^D`` fits the table, else the reference's XOR-prime hash;
+  ``(res+1)^D`` fits the table, else the reference's XOR-prime hash; on
+  the card one kernel, :func:`xor_index` (``csrc/encode_io.cu``);
 - :func:`hash_encode`: the plain gather + weighted sum (autograd's scatter
   is its backward);
 - :func:`hash_encode_fast`: the same forward, with the table gradient from
@@ -14,10 +15,12 @@ Port of the JAX ``ops/hash_encoding.py``:
   at ``input_dim=0`` (deterministic, no atomics), and analytic position
   gradients.
 
-Integer exactness: JAX multiplies and XORs in int32 with wraparound.  Here
-the products are taken in int64 (primes and strides as their uint32
-values), whose low 32 bits are JAX's bits; the result is masked to
-``S - 1``, so the indices are the same bit for bit.
+Integer exactness: JAX multiplies and XORs in int32 with wraparound.  On
+the CPU the products are taken in int64 (primes and strides as their
+uint32 values), whose low 32 bits are JAX's bits; on the card
+:func:`xor_index` takes them in uint32 with wraparound, JAX's bits again.
+The result is masked to ``S - 1``, so the indices are the same bit for
+bit.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import layer_range, range_mark
+from . import _build
 
 # XOR-prime multipliers for up to 3 input dims (the reference hash).
 _HASH_PRIMES = (1, 19349663, 83492791)
@@ -125,7 +129,53 @@ def hash_grid_indices(spec: HashGridSpec, x01: torch.Tensor):
 
 def _indices_weights_frac(spec: HashGridSpec, x01: torch.Tensor):
     """:func:`hash_grid_indices` plus ``frac`` [B, L, D], which the analytic
-    input gradients need."""
+    input gradients need: :func:`xor_index` where :func:`_xor_kernel_route`
+    allows, else :func:`_indices_weights_frac_plain`."""
+    if _xor_kernel_route(spec, x01):
+        return xor_index(spec, x01)
+    return _indices_weights_frac_plain(spec, x01)
+
+
+def _xor_kernel_route(spec: HashGridSpec, x01) -> bool:
+    """Whether :func:`_indices_weights_frac` runs the kernel: points on the
+    card, D = 3, at most 32 levels, and no gradient asked of ``x01`` (the
+    plain :func:`hash_encode` differentiates the weights by autograd)."""
+    return (x01.is_cuda and spec.input_dim == 3 and spec.num_levels <= 32
+            and not (x01.requires_grad and torch.is_grad_enabled()))
+
+
+def _check_xor_index(spec: HashGridSpec, x01: torch.Tensor) -> None:
+    """The argument checks of :func:`xor_index` (raise ``ValueError``)."""
+    _build.require(spec.input_dim == 3 and x01.dim() == 2 and x01.shape[1] == 3,
+                   f"xor_index takes [B, 3] points and input_dim 3, got "
+                   f"{tuple(x01.shape)} and input_dim {spec.input_dim}")
+    _build.require(spec.num_levels <= 32,
+                   f"xor_index takes at most 32 levels, got {spec.num_levels}")
+
+
+def xor_index(spec: HashGridSpec, x01: torch.Tensor):
+    """Corner rows ``idx`` [B, L, 8] int32, weights ``w`` [B, L, 8] f32 and
+    in-cell positions ``frac`` [B, L, 3] f32 of ``x01`` [B, 3] in [0, 1],
+    bit-equal to :func:`_indices_weights_frac_plain` on the card.  One
+    kernel (``csrc/encode_io.cu``), counted in ``LAUNCHES["xor_index"]``;
+    the plain version for CPU tensors."""
+    if _build.is_cpu(x01):
+        return _indices_weights_frac_plain(spec, x01)
+    _check_xor_index(spec, x01)
+    x = x01.to(torch.float32).contiguous()
+    B, L, dev = x.shape[0], spec.num_levels, x.device
+    idx = torch.empty((B, L, 8), dtype=torch.int32, device=dev)
+    w = torch.empty((B, L, 8), dtype=torch.float32, device=dev)
+    frac = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
+    _build.LAUNCHES["xor_index"] += 1
+    _build.launch("nvr_xor_index", dev, x.data_ptr(), _scales_on(spec, dev).data_ptr(),
+                  _strides_on(spec, dev).data_ptr(), _dense_on(spec, dev).data_ptr(),
+                  idx.data_ptr(), w.data_ptr(), frac.data_ptr(), L, B, spec.table_size)
+    return idx, w, frac
+
+
+def _indices_weights_frac_plain(spec: HashGridSpec, x01: torch.Tensor):
+    """Plain version of :func:`xor_index`, any D: PyTorch ops in int64."""
     from .coherent_hash import _bits_on
 
     D = spec.input_dim

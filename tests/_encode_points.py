@@ -4,7 +4,8 @@ versions, shared by the CPU tests and the card tests: uniform points,
 points at and next to cell edges (where a fused multiply-add would move
 ``floor(x * scale + 0.5)``), the cube's corners and faces (x = 0 and x =
 1), 700 identical points, and a count that is not a multiple of the
-kernels' 256-thread block.  Imports no JAX."""
+kernels' 256-thread block; for the XOR path's index kernel also the cube's
+corners and faces approached from inside.  Imports no JAX."""
 
 import numpy as np
 import torch
@@ -13,6 +14,9 @@ from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding impo
     HashGridSpec)
 
 CASES = ("uniform", "cell_edges", "ends", "identical_700", "ragged")
+# the XOR path's index kernel takes these and the cube's corners and faces
+# approached from inside (x = nextafter(0, 1) and nextafter(1, 0))
+XOR_CASES = CASES + ("near_ends",)
 # every level dense ((res+1)^3 <= 2^19) / every level hashed
 SPECS = {"dense": HashGridSpec(num_levels=3, base_resolution=4, log2_hashmap_size=19),
          "hashed": HashGridSpec(num_levels=3, base_resolution=16, log2_hashmap_size=12)}
@@ -22,6 +26,10 @@ SPECS = {"dense": HashGridSpec(num_levels=3, base_resolution=4, log2_hashmap_siz
 # (192 samples a ray) and abdomen_50 (576)
 MAIN_SPEC = HashGridSpec(num_levels=16, base_resolution=16, log2_hashmap_size=19)
 MAIN_B = {"chest": 196_608, "abdomen": 589_824}
+# the verify drive's grid (scripts/verify_drive_torch.py) and its points a
+# level (512 rays x 192 samples)
+VERIFY_SPEC = HashGridSpec(num_levels=8, base_resolution=16, log2_hashmap_size=15)
+VERIFY_B = 98_304
 
 
 def points(case: str, spec: HashGridSpec, seed: int = 0, n: int = 2048) -> torch.Tensor:
@@ -38,6 +46,11 @@ def points(case: str, spec: HashGridSpec, seed: int = 0, n: int = 2048) -> torch
         faces = rng.uniform(0, 1, (504, 3))
         faces[np.arange(504), np.arange(504) % 3] = np.arange(504) % 2
         x = np.concatenate([corners, faces])
+    elif case == "near_ends":
+        v = np.array([0.0, np.nextafter(np.float32(0), np.float32(1)),
+                      np.nextafter(np.float32(1), np.float32(0)), 1.0], np.float32)
+        grid = np.stack(np.meshgrid(v, v, v, indexing="ij"), -1).reshape(-1, 3)
+        x = np.concatenate([grid, rng.uniform(0, 1, (448, 3))])
     elif case == "cell_edges":
         # (k - 0.5) / scale of each level and its f32 neighbours: some round
         # x * scale to exactly k - 0.5, putting pos on the edge k

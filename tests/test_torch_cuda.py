@@ -15,7 +15,8 @@ the same arithmetic (bit-equal to it and to its plain version); the
 sorted encoder's index kernel, the span gather's point-order mode, the
 feature unpack, the gradient transpose and the gradient-permute kernel are
 bit-equal to their plain versions and to the PyTorch ops they replace, and ``sorted_encode`` through them to its
-PyTorch route;
+PyTorch route; so is the XOR path's index kernel, and ``hash_encode_fast``
+through it equals its PyTorch route;
 the bucket sum is bitwise reproducible run to run, and equals the plain
 version bit for bit (both sum every run in stream order from the same f32
 products); the scatter adds each row's updates in stream order, as
@@ -33,6 +34,7 @@ import pytest
 import torch
 
 from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
+from neuralvolumetricreconstructionformedicalimages_torch.ops import hash_encoding as he
 from neuralvolumetricreconstructionformedicalimages_torch.ops import bucket_matmul as bm
 from neuralvolumetricreconstructionformedicalimages_torch.ops import coherent_hash as ch
 from neuralvolumetricreconstructionformedicalimages_torch.ops import roll_kernels as rk
@@ -532,6 +534,82 @@ def test_encode_index_kernel(dev, spec_name, case, shape):
     assert torch.equal(base, bt) and torch.equal(pos, sg.pack_frac_t(ft))
 
 
+# ---- the XOR path's index kernel (ops/hash_encoding.py::xor_index) ----
+
+# the point sets of tests/_encode_points.py, with x = nextafter(1, 0) and
+# nextafter(0, 1), on a dense and a hashed grid and on NAF's grid (levels
+# 0-2 dense, the rest hashed), and uniform points at the chest_50 batch
+# (B = 196,608, L = 16, S = 2^19) and the verify drive's (L = 8, S = 2^15)
+_XOR = ([(s, c) for s in (*sorted(P.SPECS), "main") for c in P.XOR_CASES]
+        + [("main", "chest"), ("verify", "verify")])
+_XOR_IDS = [f"{s}-{c}" for s, c in _XOR]
+
+
+def _xor_inputs(spec_name, case, seed):
+    """(spec, points [B, 3] on the CPU) of one ``_XOR`` case."""
+    spec = {"main": P.MAIN_SPEC, "verify": P.VERIFY_SPEC}.get(spec_name) \
+        or P.SPECS[spec_name]
+    if case in ("chest", "verify"):
+        return spec, P.points("uniform", spec, seed,
+                              P.MAIN_B["chest"] if case == "chest" else P.VERIFY_B)
+    return spec, P.points(case, spec, seed)
+
+
+@pytest.mark.parametrize("spec_name,case", _XOR, ids=_XOR_IDS)
+def test_xor_index_kernel(dev, spec_name, case):
+    """idx, w and frac ``torch.equal`` to ``_indices_weights_frac_plain``
+    on the card; one launch of ``xor_index``, and ``_indices_weights_frac``
+    takes the kernel (one more launch, the same tensors)."""
+    spec, x = _xor_inputs(spec_name, case, 60)
+    x = x.to(dev)
+    n0 = _build.LAUNCHES["xor_index"]
+    idx, w, frac = he.xor_index(spec, x)
+    assert _build.LAUNCHES["xor_index"] == n0 + 1
+    pi, pw, pf = he._indices_weights_frac_plain(spec, x)
+    assert idx.dtype == torch.int32 and w.dtype == frac.dtype == torch.float32
+    assert torch.equal(idx, pi) and torch.equal(w, pw) and torch.equal(frac, pf)
+    again = he._indices_weights_frac(spec, x)
+    assert _build.LAUNCHES["xor_index"] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(again, (idx, w, frac)))
+
+
+def test_prod_of_three_groups_as_the_xor_kernel(dev):
+    """``torch.prod`` over a contiguous axis of 3 on the card is (t0 * t2) *
+    t1, the grouping ``xor_index_kernel`` takes for a corner's weight; the
+    serial grouping (t0 * t1) * t2 differs somewhere on these draws."""
+    t = torch.rand((196_608, 16, 8, 3), generator=_gen(dev, 61), device=dev)
+    p = torch.prod(t, dim=-1)
+    assert torch.equal(p, (t[..., 0] * t[..., 2]) * t[..., 1])
+    assert not torch.equal(p, (t[..., 0] * t[..., 1]) * t[..., 2])
+
+
+@pytest.mark.parametrize("spec_name,case", [("main", "chest"), ("hashed", "cell_edges")],
+                         ids=["chest", "hashed-cell_edges"])
+def test_hash_encode_fast_kernel_route_equals_plain_route(dev, monkeypatch, spec_name,
+                                                          case):
+    """``hash_encode_fast`` with ``xor_index`` and with the PyTorch index
+    ops (forced): features, the table gradient and the position gradient
+    ``torch.equal``; one launch a forward on the kernel route, none on the
+    other."""
+    spec, x = _xor_inputs(spec_name, case, 62)
+    x = x.to(dev)
+    table = torch.randn((spec.num_levels, spec.table_size, 2), generator=_gen(dev, 63),
+                        device=dev)
+    ct = torch.randn((x.shape[0], spec.output_dim), generator=_gen(dev, 64), device=dev)
+    res = []
+    for kernels in (True, False):
+        if not kernels:
+            monkeypatch.setattr(he, "_xor_kernel_route", lambda *a: False)
+        n0 = _build.LAUNCHES["xor_index"]
+        xx = x.clone().requires_grad_(True)
+        t = table.clone().requires_grad_(True)
+        out = he.hash_encode_fast(xx, t, spec)
+        assert _build.LAUNCHES["xor_index"] == n0 + int(kernels)
+        (out * ct).sum().backward()
+        res.append((out.detach(), t.grad, xx.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*res))
+
+
 @pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("spec_name,case,shape", _ROUTE, ids=_ROUTE_IDS)
@@ -844,13 +922,13 @@ _GRAPH_PATHS = {
                     "transpose_grad_t": True, "encode_grad_permute": True,
                     "bucket_grad_matmul": True, "unroll_reduce_fm": True,
                     "span_gather_sorted[table]": False, "span_gather_sorted": False,
-                    "roll_broadcast_fm": False}),
+                    "roll_broadcast_fm": False, "xor_index": False}),
     "rolled": ({"forward": "rolled", "input_grads": True},
                {"roll_broadcast_fm": True, "bucket_grad_matmul": True,
                 "unroll_reduce_fm": True, "span_gather_sorted[table]": False,
-                **{k: False for k in _ROUTE_COUNTS}}),
+                "xor_index": False, **{k: False for k in _ROUTE_COUNTS}}),
     "xor": ({"hash_variant": "xor"},
-            {"bucket_grad_matmul": True, "unroll_reduce_fm": False,
+            {"bucket_grad_matmul": True, "xor_index": True, "unroll_reduce_fm": False,
              "span_gather_sorted[table]": False, **{k: False for k in _ROUTE_COUNTS}}),
 }
 
@@ -1237,8 +1315,9 @@ def test_marked_twin_launches_marks_only_when_asked(dev):
 
 def test_xor_marked_twin_marks_its_encoder(dev):
     """The XOR path's marked twin launches one mark a leaf range and the
-    end mark, and one bucket kernel, as its plain graph does; its replays
-    charge each of its ranges once a step and ``encode`` never."""
+    end mark, and one bucket kernel and one ``xor_index`` kernel, as its
+    plain graph does; its replays charge each of its ranges once a step,
+    ``encode.index`` (the kernel) with time, and ``encode`` never."""
     from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
 
     order = torch.arange(5, device=dev)[:, None]
@@ -1250,6 +1329,7 @@ def test_xor_marked_twin_marks_its_encoder(dev):
     assert graphed.twin_launches["range_mark"] == len(_XOR_RANGES) + 1
     assert graphed.twin_launches["bucket_grad_matmul"] == 1
     assert graphed.launches["bucket_grad_matmul"] == 1
+    assert graphed.twin_launches["xor_index"] == graphed.launches["xor_index"] == 1
     epoch_fn(arrays, order[1:2], 1)                  # plain: the next marked replay resets
     with profiling.ranges():
         epoch_fn(arrays, order[2:5], 2)
@@ -1257,6 +1337,7 @@ def test_xor_marked_twin_marks_its_encoder(dev):
     assert t["steps"] == 3
     assert t["hits"] == {r: 3 if r in _XOR_RANGES else 0 for r in profiling.RANGES} | {
         "step.io": 2}, t
+    assert t["device_ms"]["encode.index"] > 0, t
 
 
 def test_marked_step_ranges_sum_to_its_time(dev):

@@ -3,17 +3,24 @@ index kernel, the span gather's point-order mode, the feature unpack, the
 gradient transpose and the gradient-permute kernel (``ops/span_gather.py``) ``torch.equal`` to
 the PyTorch ops they replace on the card, and ``sorted_encode`` through
 that route equal to its PyTorch route in features and table gradients.
+The XOR path's index math (``ops/hash_encoding.py``): the CPU keeps the
+PyTorch ops, the kernel's route and argument checks, and its uint32
+arithmetic (modelled in numpy) against those ops.
 
 The kernels themselves are held against these plain versions on the card
 in ``test_torch_cuda.py``.  Point sets: ``tests/_encode_points.py``.
 """
 
+import types
+
+import numpy as np
 import pytest
 import torch
 
 import _encode_points as P
 from neuralvolumetricreconstructionformedicalimages_torch.ops import _build
 from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
+from neuralvolumetricreconstructionformedicalimages_torch.ops import hash_encoding as he
 from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
     base_and_frac_t)
 
@@ -156,3 +163,115 @@ def test_sorted_encode_kernel_route_equals_pytorch_route(monkeypatch, spec_name,
         routes.append((out.detach(), t.grad))
     assert torch.equal(routes[0][0], routes[1][0])
     assert torch.equal(routes[0][1], routes[1][1])
+
+
+# ---- the XOR path's index math (ops/hash_encoding.py::xor_index) ----
+
+XOR_GRID = [(s, c) for s in (*sorted(P.SPECS), "main") for c in P.XOR_CASES]
+XOR_IDS = [f"{s}-{c}" for s, c in XOR_GRID]
+
+
+def _xor_spec(name):
+    return P.MAIN_SPEC if name == "main" else P.SPECS[name]
+
+
+@pytest.mark.parametrize("spec_name,case", XOR_GRID, ids=XOR_IDS)
+def test_xor_indices_on_the_cpu_are_the_plain_version(spec_name, case):
+    """On the CPU ``_indices_weights_frac`` and ``xor_index`` return the
+    plain version's idx, w and frac (``torch.equal``) and count no launch."""
+    spec = _xor_spec(spec_name)
+    x = P.points(case, spec, seed=10)
+    n0 = _build.LAUNCHES["xor_index"]
+    ref = he._indices_weights_frac_plain(spec, x)
+    assert [t.dtype for t in ref] == [torch.int32, torch.float32, torch.float32]
+    for got in (he._indices_weights_frac(spec, x), he.xor_index(spec, x)):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert _build.LAUNCHES["xor_index"] == n0
+
+
+def _xor_index_numpy(spec, x):
+    """The arithmetic of ``xor_index_kernel`` in numpy: pos in two f32
+    roundings, rows in uint32 with wraparound masked to S - 1, weights
+    grouped (t0 * t2) * t1 in f32."""
+    x = x.numpy().astype(np.float32)
+    pos = (x[:, None, :] * spec.scales[None, :, None]).astype(np.float32)
+    pos = (pos + np.float32(0.5)).astype(np.float32)
+    f = (pos - np.floor(pos)).astype(np.float32)                  # [B, L, 3]
+    o = (np.float32(1) - f).astype(np.float32)
+    g = np.floor(pos).astype(np.int64).astype(np.uint32)
+    bits = (np.arange(8)[:, None] >> np.arange(3)) & 1            # [8, 3]
+    c = g[:, :, None, :] + bits.astype(np.uint32)                 # [B, L, 8, 3]
+    res_p1 = (spec.resolutions + 1).astype(np.uint64)
+    strides = (np.stack([res_p1 ** d for d in range(3)], -1) & 0xFFFFFFFF).astype(np.uint32)
+    dense = (c * strides[None, :, None, :]).sum(-1, dtype=np.uint32)
+    primes = np.array([1, 19349663, 83492791], np.uint32)
+    hashed = (c[..., 0] * primes[0]) ^ (c[..., 1] * primes[1]) ^ (c[..., 2] * primes[2])
+    rows = np.where(spec.dense_levels[None, :, None], dense, hashed)
+    rows = (rows & np.uint32(spec.table_size - 1)).astype(np.int32)
+    t = np.where(bits[None, None] > 0, f[:, :, None, :], o[:, :, None, :])
+    w = ((t[..., 0] * t[..., 2]).astype(np.float32) * t[..., 1]).astype(np.float32)
+    return rows, w, f
+
+
+@pytest.mark.parametrize("spec_name,case", XOR_GRID, ids=XOR_IDS)
+def test_xor_kernel_arithmetic_matches_the_pytorch_ops(spec_name, case):
+    """The kernel's uint32 rows and its f32 positions ``equal`` the int64
+    PyTorch ops' (the low 32 bits agree and 2^S divides 2^32); its weights
+    (another grouping of the product than the CPU's) agree within two
+    ulps."""
+    spec = _xor_spec(spec_name)
+    x = P.points(case, spec, seed=11)
+    idx, w, frac = he._indices_weights_frac_plain(spec, x)
+    rows, wn, fn = _xor_index_numpy(spec, x)
+    np.testing.assert_array_equal(idx.numpy(), rows)
+    np.testing.assert_array_equal(frac.numpy(), fn)
+    np.testing.assert_allclose(w.numpy(), wn, rtol=2.5e-7, atol=0)
+
+
+def _on_card(requires_grad=False):
+    """What the route reads of a CUDA tensor (no card here)."""
+    return types.SimpleNamespace(is_cuda=True, requires_grad=requires_grad)
+
+
+@pytest.mark.parametrize("spec,x,grad,expect", [
+    (P.MAIN_SPEC, _on_card(), True, True),
+    (P.MAIN_SPEC, torch.zeros((4, 3)), True, False),
+    (he.HashGridSpec(input_dim=2), _on_card(), True, False),
+    (he.HashGridSpec(num_levels=33), _on_card(), True, False),
+    (P.MAIN_SPEC, _on_card(True), True, False),
+    (P.MAIN_SPEC, _on_card(True), False, True),
+], ids=["card", "cpu", "input_dim_2", "33_levels", "grad_asked",
+        "grad_asked_no_grad_mode"])
+def test_xor_kernel_route(spec, x, grad, expect):
+    """The kernel takes points on the card, D = 3, at most 32 levels, and
+    no gradient asked of the points (under grad mode); anything else takes
+    the PyTorch ops."""
+    with torch.set_grad_enabled(grad):
+        assert he._xor_kernel_route(spec, x) is expect
+
+
+def test_xor_indices_of_two_dimensional_points_are_the_plain_version():
+    """input_dim 2 takes the PyTorch ops, which the kernel does not cover."""
+    spec = he.HashGridSpec(input_dim=2, num_levels=4, base_resolution=4,
+                           log2_hashmap_size=10)
+    x = torch.rand((500, 2), generator=torch.Generator().manual_seed(12))
+    n0 = _build.LAUNCHES["xor_index"]
+    got = he._indices_weights_frac(spec, x)
+    ref = he._indices_weights_frac_plain(spec, x)
+    assert got[0].shape == (500, 4, 4) and got[2].shape == (500, 4, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert _build.LAUNCHES["xor_index"] == n0
+
+
+@pytest.mark.parametrize("spec,shape,match", [
+    (P.MAIN_SPEC, (5, 2), r"\[B, 3\] points"),
+    (P.MAIN_SPEC, (5, 3, 1), r"\[B, 3\] points"),
+    (P.MAIN_SPEC, (3,), r"\[B, 3\] points"),
+    (he.HashGridSpec(input_dim=2), (5, 3), "input_dim 2"),
+    (he.HashGridSpec(num_levels=33), (5, 3), "at most 32 levels"),
+], ids=["B2", "B31", "flat", "input_dim_2", "33_levels"])
+def test_xor_index_refuses_what_the_kernel_does_not_take(spec, shape, match):
+    """The wrapper's checks, called without a card: a clear ValueError."""
+    with pytest.raises(ValueError, match=match):
+        he._check_xor_index(spec, torch.zeros(shape))
+    he._check_xor_index(P.MAIN_SPEC, torch.zeros((5, 3)))
