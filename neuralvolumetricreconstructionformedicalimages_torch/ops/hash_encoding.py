@@ -129,18 +129,20 @@ def hash_grid_indices(spec: HashGridSpec, x01: torch.Tensor):
 
 def _indices_weights_frac(spec: HashGridSpec, x01: torch.Tensor):
     """:func:`hash_grid_indices` plus ``frac`` [B, L, D], which the analytic
-    input gradients need: :func:`xor_index` where :func:`_xor_kernel_route`
-    allows, else :func:`_indices_weights_frac_plain`."""
+    input gradients need: :func:`xor_index` (its kernel on the card, its
+    plain version on the CPU) where :func:`_xor_kernel_route` allows, else
+    :func:`_indices_weights_frac_plain`."""
     if _xor_kernel_route(spec, x01):
         return xor_index(spec, x01)
     return _indices_weights_frac_plain(spec, x01)
 
 
 def _xor_kernel_route(spec: HashGridSpec, x01) -> bool:
-    """Whether :func:`_indices_weights_frac` runs the kernel: points on the
-    card, D = 3, at most 32 levels, and no gradient asked of ``x01`` (the
-    plain :func:`hash_encode` differentiates the weights by autograd)."""
-    return (x01.is_cuda and spec.input_dim == 3 and spec.num_levels <= 32
+    """Whether :func:`_indices_weights_frac` calls :func:`xor_index`: what
+    its kernel takes, D = 3, at most 32 levels, and no gradient asked of
+    ``x01`` under grad mode (the plain :func:`hash_encode` differentiates
+    the weights by autograd).  ``xor_index`` itself chooses the device."""
+    return (spec.input_dim == 3 and spec.num_levels <= 32
             and not (x01.requires_grad and torch.is_grad_enabled()))
 
 

@@ -11,17 +11,17 @@ Port of the JAX ``ops/span_gather.py``.  Pipeline of :func:`sorted_encode`:
 3. an index copy by the saved permutation un-permutes the features (the
    JAX code sorts a second time; it is the same function).
 
-On the card with packed positions (D = 3, C = 2, every shipped
-configuration) the work around the sort runs in kernels:
-:func:`encode_index` writes the base indices and the packed positions,
-:func:`span_gather_point_order` reads the positions and writes the
-features as bf16 pairs through the permutation (steps 2 and 3 in one
-pass), :func:`unpack_feats_t` transposes and widens them to [B, L*C] f32,
-and the backward's :func:`transpose_grad_t` and :func:`encode_grad_permute`
-bring the output gradient and the unpacked positions to sorted order.
-Elsewhere (the CPU, f32 positions, :func:`sorted_encode_features`)
-PyTorch ops do that work; they are the kernels' plain route, bit-equal to
-them.
+With packed positions (D = 3, C = 2, every shipped configuration) the
+work around the sort runs in kernels: :func:`encode_index` writes the
+base indices and the packed positions, :func:`span_gather_point_order`
+reads the positions and writes the features as bf16 pairs through the
+permutation (steps 2 and 3 in one pass), :func:`unpack_feats_t`
+transposes and widens them to [B, L*C] f32, and the backward's
+:func:`transpose_grad_t` and :func:`encode_grad_permute` bring the output
+gradient and the unpacked positions to sorted order.  The CPU runs the
+same sequence, each wrapper through its plain version.  Only f32
+positions and :func:`sorted_encode_features` gather and scatter with
+PyTorch ops (:func:`_encode_sorted`).
 
 The JAX forward first builds the feature-major rolled table
 ``R[l, k*C + c, s] = table[l, (s + off[l, k]) % S, c]`` (``roll_broadcast_fm``)
@@ -335,8 +335,8 @@ def _unpack_feats(pk: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The kernel route around the sort: index, point-order gather, feature
-# unpack, gradient transpose and permute (packed positions, D = 3, C = 2)
+# The work around the sort for packed positions (D = 3, C = 2): index,
+# point-order gather, feature unpack, gradient transpose and permute
 # ---------------------------------------------------------------------------
 
 def encode_index_plain(spec: HashGridSpec, x01: torch.Tensor):
@@ -509,12 +509,6 @@ def encode_grad_permute(perm: torch.Tensor, spf: torch.Tensor, gT: torch.Tensor)
     return sg, sf
 
 
-def _kernel_route(x01: torch.Tensor, table: torch.Tensor, pack: bool) -> bool:
-    """Whether :func:`sorted_encode` does its work around the sort in the
-    kernels above (CUDA tensors, packed positions) or in PyTorch ops."""
-    return pack and not _build.is_cpu(x01, table)
-
-
 # ---------------------------------------------------------------------------
 # Full sorted-forward encode with the bucket backward
 # ---------------------------------------------------------------------------
@@ -522,7 +516,9 @@ def _kernel_route(x01: torch.Tensor, table: torch.Tensor, pack: bool) -> bool:
 def _encode_sorted(base_t, pos, gather, n_channels: int):
     """Point-order features [B, L*C] plus what the backward reuses: the
     sorted keys, the permutation and the sorted positions (``pos`` packed
-    by :func:`pack_frac_t`, int32 [L, B], or f32 [L, D, B]).
+    by :func:`pack_frac_t`, int32 [L, B], or f32 [L, D, B]), gathered and
+    scattered with PyTorch ops.  Its callers: :func:`sorted_encode` for f32
+    positions, and :func:`sorted_encode_features`.
     ``gather(sorted_keys, sorted_frac)`` is the span gather of one table
     layout.  Layer ranges ``encode.sort``, ``encode.permute`` (positions to
     sorted order), ``encode.gather``, ``encode.permute`` (features back to
@@ -581,16 +577,14 @@ class _SortedEncode(torch.autograd.Function):
     def forward(ctx, x01, table, spec, table_dtype, pack):
         shape = (*x01.shape[:-1], spec.output_dim)
         pack = bool(pack) and spec.input_dim == 3 and spec.level_dim == 2
-        ctx.kernels = _kernel_route(x01, table, pack)
         with layer_range("encode.index"):
             tab = table.detach()
             x = x01.detach().reshape(-1, spec.input_dim)
-            if ctx.kernels:
+            if pack:
                 base_t, pos = encode_index(spec, x)
             else:
                 base_t, frac_t = base_and_frac_t(spec, x)
-                pos = pack_frac_t(frac_t) if pack else frac_t
-        if ctx.kernels:
+        if pack:
             with layer_range("encode.sort"):
                 sk, perm = torch.sort(base_t, dim=-1, stable=True)
             del base_t
@@ -604,7 +598,7 @@ class _SortedEncode(torch.autograd.Function):
             def gather(sk, sfrac):
                 return span_gather_sorted_table(sk, sfrac, tab, spec, table_dtype)
 
-            out, (sk, perm, sfrac) = _encode_sorted(base_t, pos, gather,
+            out, (sk, perm, sfrac) = _encode_sorted(base_t, frac_t, gather,
                                                     table.shape[2])
             with layer_range("encode.permute"):
                 out = out.reshape(shape)
@@ -621,14 +615,12 @@ class _SortedEncode(torch.autograd.Function):
         spec = ctx.spec
         L, B = sk.shape
         C = ctx.n_channels
-        if ctx.kernels:
+        if ctx.pack:
             gT = transpose_grad_t(g.reshape(B, L * C), L)
             sg, sf = encode_grad_permute(perm, sfrac, gT)
             del gT
         else:
-            # The packed fracs decode to the quantised positions the forward
-            # interpolated with, so the backward differentiates that function.
-            sf = unpack_frac_t(sfrac) if ctx.pack else sfrac
+            sf = sfrac
             gt = g.reshape(B, L, C).permute(1, 2, 0).to(torch.float32)  # [L, C, B]
             sg = torch.gather(gt, 2, perm[:, None, :].expand(L, C, B))
         range_mark("backward.encode.bucket")

@@ -5,13 +5,22 @@ points at and next to cell edges (where a fused multiply-add would move
 ``floor(x * scale + 0.5)``), the cube's corners and faces (x = 0 and x =
 1), 700 identical points, and a count that is not a multiple of the
 kernels' 256-thread block; for the XOR path's index kernel also the cube's
-corners and faces approached from inside.  Imports no JAX."""
+corners and faces approached from inside.  Also the PyTorch ops that
+those kernels replace (:func:`glue_forward`, :func:`glue_backward`), the
+reference ``sorted_encode`` is held to on both devices.  Imports no JAX."""
 
 import numpy as np
 import torch
 
+from neuralvolumetricreconstructionformedicalimages_torch.ops import span_gather as sg
+from neuralvolumetricreconstructionformedicalimages_torch.ops.bucket_matmul import (
+    bucket_grad_matmul)
+from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
+    base_and_frac_t)
 from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding import (
     HashGridSpec)
+from neuralvolumetricreconstructionformedicalimages_torch.ops.roll_kernels import (
+    _PAD, unroll_reduce_fm)
 
 CASES = ("uniform", "cell_edges", "ends", "identical_700", "ragged")
 # the XOR path's index kernel takes these and the cube's corners and faces
@@ -65,3 +74,35 @@ def points(case: str, spec: HashGridSpec, seed: int = 0, n: int = 2048) -> torch
     else:
         raise ValueError(case)
     return torch.as_tensor(np.clip(x, 0, 1), dtype=torch.float32)
+
+
+def glue_forward(spec: HashGridSpec, x: torch.Tensor, table: torch.Tensor, table_dtype):
+    """The sorted encoder's forward in PyTorch ops around the span gather's
+    table mode: index math, packing, the sort, the positions gathered to
+    sorted order, the gather, the bf16 pack, the scatter back to point
+    order and the unpack.  Returns (sorted keys, perm, pos, sorted pos, the
+    point-order bf16 pairs, the features [B, L*2])."""
+    base_t, frac_t = base_and_frac_t(spec, x)
+    pos = sg.pack_frac_t(frac_t)
+    sk, perm = torch.sort(base_t, dim=-1, stable=True)
+    spf = torch.gather(pos, 1, perm)
+    fs = sg.span_gather_sorted_table(sk, spf[:, None, :], table, spec, table_dtype)
+    packed_sorted = sg._pack_feats(fs)
+    packed = torch.empty_like(packed_sorted).scatter_(1, perm, packed_sorted)
+    out = sg._unpack_feats(packed.t())
+    return sk, perm, pos, spf, packed, out.reshape(x.shape[0], -1)
+
+
+def glue_backward(spec: HashGridSpec, sk: torch.Tensor, perm: torch.Tensor,
+                  spf: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The table gradient [L, S, 2] of :func:`glue_forward` for the output
+    gradient ``g`` [B, L*2]: ``g`` gathered to sorted order by ``perm``,
+    the packed positions unpacked (the quantised positions the forward
+    interpolated with), the bucket and the unroll."""
+    L, B = sk.shape
+    sf = sg.unpack_frac_t(spf)
+    gt = g.reshape(B, L, 2).permute(1, 2, 0).to(torch.float32)   # [L, 2, B]
+    sgr = torch.gather(gt, 2, perm[:, None, :].expand(L, 2, B))
+    grad_rolled = bucket_grad_matmul(sk, sf, sgr, table_size=spec.table_size,
+                                     input_dim=spec.input_dim, extend_cols=_PAD)
+    return unroll_reduce_fm(grad_rolled, spec, 2)

@@ -14,8 +14,8 @@ the span gather's table mode reads the values of the rolled mode through
 the same arithmetic (bit-equal to it and to its plain version); the
 sorted encoder's index kernel, the span gather's point-order mode, the
 feature unpack, the gradient transpose and the gradient-permute kernel are
-bit-equal to their plain versions and to the PyTorch ops they replace, and ``sorted_encode`` through them to its
-PyTorch route; so is the XOR path's index kernel, and ``hash_encode_fast``
+bit-equal to their plain versions and to the PyTorch ops they replace, and ``sorted_encode`` through them to
+those ops; so is the XOR path's index kernel, and ``hash_encode_fast``
 through it equals its PyTorch route;
 the bucket sum is bitwise reproducible run to run, and equals the plain
 version bit for bit (both sum every run in stream order from the same f32
@@ -685,29 +685,32 @@ def test_encode_grad_permute_kernel(dev, spec_name, case, shape):
 
 
 @pytest.mark.parametrize("spec_name,case,shape", _ROUTE, ids=_ROUTE_IDS)
-def test_sorted_encode_kernel_route_equals_pytorch_route(dev, monkeypatch, spec_name,
-                                                         case, shape):
-    """``sorted_encode`` on the same card tensors through its kernel route
-    and through its PyTorch route (forced): features and table gradients
-    ``torch.equal``; the three new counters read one each on the kernel
-    route and zero on the PyTorch route, which launches the table mode."""
+def test_sorted_encode_kernel_route_equals_pytorch_route(dev, spec_name, case, shape):
+    """``sorted_encode`` on card tensors ``torch.equal``, in features and
+    table gradients, to the PyTorch ops its kernels replace on the same
+    tensors (``_encode_points.glue_forward`` and ``glue_backward``); the
+    route's five counters read one each and the table mode none, and those
+    ops launch the table mode once."""
     spec, x, table = _route_inputs(dev, spec_name, case, shape, 56)
     ct = torch.randn((x.shape[0], spec.output_dim), generator=_gen(dev, 57), device=dev)
-    res = []
-    for kernels in (True, False):
-        if not kernels:
-            monkeypatch.setattr(sg, "_kernel_route", lambda *a: False)
-        n0 = dict(_build.LAUNCHES)
-        t = table.clone().requires_grad_(True)
-        out = sg.sorted_encode(x, t, spec, torch.bfloat16, True)
-        (out * ct).sum().backward()
-        n = {k: _build.LAUNCHES[k] - n0.get(k, 0)
-             for k in (*_ROUTE_COUNTS, "span_gather_sorted[table]")}
-        assert n == {**{k: int(kernels) for k in _ROUTE_COUNTS},
-                     "span_gather_sorted[table]": int(not kernels)}, n
-        res.append((out.detach(), t.grad))
-    assert torch.equal(res[0][0], res[1][0])
-    assert torch.equal(res[0][1], res[1][1])
+    counted = (*_ROUTE_COUNTS, "span_gather_sorted[table]")
+
+    def launched(n0):
+        return {k: _build.LAUNCHES[k] - n0.get(k, 0) for k in counted}
+
+    n0 = dict(_build.LAUNCHES)
+    t = table.clone().requires_grad_(True)
+    out = sg.sorted_encode(x, t, spec, torch.bfloat16, True)
+    (out * ct).sum().backward()
+    n = launched(n0)
+    assert n == {**{k: 1 for k in _ROUTE_COUNTS}, "span_gather_sorted[table]": 0}, n
+    n0 = dict(_build.LAUNCHES)
+    sk, perm, _, spf, _, ref = P.glue_forward(spec, x, table, torch.bfloat16)
+    ref_grad = P.glue_backward(spec, sk, perm, spf, ct)
+    n = launched(n0)
+    assert n == {**{k: 0 for k in _ROUTE_COUNTS}, "span_gather_sorted[table]": 1}, n
+    assert torch.equal(out.detach(), ref)
+    assert torch.equal(t.grad, ref_grad)
 
 
 @pytest.fixture
@@ -1258,7 +1261,7 @@ def test_graphed_steps_at_8192_rays_equal_eager_steps(dev, monkeypatch):
 # ---- the marked twin of the graphed step (utils/profiling.py ranges) ----
 
 # the main path's marks a step: its 15 leaf ranges (encode.permute once:
-# the feature unpack; the PyTorch route runs it twice) and the end mark
+# the feature unpack) and the end mark
 _MAIN_MARKS = 16
 # the XOR path's leaf ranges, each marked once a step
 _XOR_RANGES = ("batch", "sample", "encode.index", "encode.gather", "mlp", "render",

@@ -1,11 +1,12 @@
-"""The sorted encoder's kernel route on the CPU: the plain versions of the
-index kernel, the span gather's point-order mode, the feature unpack, the
-gradient transpose and the gradient-permute kernel (``ops/span_gather.py``) ``torch.equal`` to
-the PyTorch ops they replace on the card, and ``sorted_encode`` through
-that route equal to its PyTorch route in features and table gradients.
-The XOR path's index math (``ops/hash_encoding.py``): the CPU keeps the
-PyTorch ops, the kernel's route and argument checks, and its uint32
-arithmetic (modelled in numpy) against those ops.
+"""The sorted encoder's kernel sequence on the CPU: the plain versions of
+the index kernel, the span gather's point-order mode, the feature unpack,
+the gradient transpose and the gradient-permute kernel
+(``ops/span_gather.py``) ``torch.equal`` to the PyTorch ops they replace,
+and ``sorted_encode``, which runs that sequence on every device, equal to
+those ops in features and table gradients.  The XOR path's index math
+(``ops/hash_encoding.py``): ``xor_index`` runs its plain version on the
+CPU; the route, the kernel's argument checks, and its uint32 arithmetic
+(modelled in numpy) against the PyTorch ops.
 
 The kernels themselves are held against these plain versions on the card
 in ``test_torch_cuda.py``.  Point sets: ``tests/_encode_points.py``.
@@ -28,26 +29,14 @@ GRID = [(s, c) for s in sorted(P.SPECS) for c in P.CASES]
 IDS = [f"{s}-{c}" for s, c in GRID]
 NEW_COUNTS = ("encode_index", "span_gather_sorted[table,point_order]",
               "unpack_feats_t", "transpose_grad_t", "encode_grad_permute")
+# the wrappers ``sorted_encode`` calls with packed positions, in call order
+SEQUENCE = ("encode_index", "span_gather_point_order", "unpack_feats_t",
+            "transpose_grad_t", "encode_grad_permute")
 
 
 def _table(spec, seed):
     g = torch.Generator().manual_seed(seed)
     return torch.randn((spec.num_levels, spec.table_size, 2), generator=g)
-
-
-def _glue_forward(spec, x, table, table_dtype):
-    """Today's PyTorch ops: index math, packing, the sort, the positions
-    gathered to sorted order, the table-mode gather, the bf16 pack, the
-    scatter back to point order and the unpack."""
-    base_t, frac_t = base_and_frac_t(spec, x)
-    pos = sg.pack_frac_t(frac_t)
-    sk, perm = torch.sort(base_t, dim=-1, stable=True)
-    spf = torch.gather(pos, 1, perm)
-    fs = sg.span_gather_sorted_table(sk, spf[:, None, :], table, spec, table_dtype)
-    packed_sorted = sg._pack_feats(fs)
-    packed = torch.empty_like(packed_sorted).scatter_(1, perm, packed_sorted)
-    out = sg._unpack_feats(packed.t())
-    return sk, perm, pos, spf, packed, out.reshape(x.shape[0], -1)
 
 
 @pytest.mark.parametrize("spec_name,case", GRID, ids=IDS)
@@ -78,7 +67,7 @@ def test_point_order_gather_plain_equals_pytorch_ops(spec_name, case, table_dtyp
     spec = P.SPECS[spec_name]
     x = P.points(case, spec, seed=2)
     table = _table(spec, 3)
-    sk, perm, pos, spf_ref, packed_ref, _ = _glue_forward(spec, x, table, table_dtype)
+    sk, perm, pos, spf_ref, packed_ref, _ = P.glue_forward(spec, x, table, table_dtype)
     spf, feats = sg.span_gather_point_order_plain(sk, perm, pos, table, spec, table_dtype)
     assert spf.dtype == feats.dtype == torch.int32 and feats.shape == pos.shape
     assert torch.equal(spf, spf_ref)
@@ -94,7 +83,7 @@ def test_unpack_feats_t_plain_equals_pytorch_ops(spec_name, case):
     the plain version for CPU tensors."""
     spec = P.SPECS[spec_name]
     x = P.points(case, spec, seed=3)
-    *_, packed, out_ref = _glue_forward(spec, x, _table(spec, 4), torch.bfloat16)
+    *_, packed, out_ref = P.glue_forward(spec, x, _table(spec, 4), torch.bfloat16)
     out = sg.unpack_feats_t_plain(packed)
     assert out.dtype == torch.float32 and out.is_contiguous()
     assert torch.equal(out, out_ref)
@@ -123,7 +112,7 @@ def test_grad_permute_plain_equals_pytorch_ops(spec_name, case):
     spec = P.SPECS[spec_name]
     x = P.points(case, spec, seed=4)
     L, B = spec.num_levels, x.shape[0]
-    _, perm, _, spf, _, _ = _glue_forward(spec, x, _table(spec, 5), torch.bfloat16)
+    _, perm, _, spf, _, _ = P.glue_forward(spec, x, _table(spec, 5), torch.bfloat16)
     g = torch.randn((B, L * 2), generator=torch.Generator().manual_seed(6))
     gt = g.reshape(B, L, 2).permute(1, 2, 0)
     sg_ref = torch.gather(gt, 2, perm[:, None, :].expand(L, 2, B))
@@ -138,31 +127,33 @@ def test_grad_permute_plain_equals_pytorch_ops(spec_name, case):
 
 @pytest.mark.parametrize("spec_name,case", GRID, ids=IDS)
 def test_sorted_encode_kernel_route_equals_pytorch_route(monkeypatch, spec_name, case):
-    """``sorted_encode`` with its kernel route forced on the CPU (the three
-    wrappers then run their plain versions) ``torch.equal`` to its PyTorch
-    route in features and table gradients, on [rays, samples, 3] points;
-    the CPU takes the PyTorch route by itself and counts no new launch."""
+    """``sorted_encode`` on the CPU calls the card's sequence of wrappers
+    (each runs its plain version and counts no launch) and is
+    ``torch.equal``, in features and table gradients, to the PyTorch ops
+    that sequence replaces (``_encode_points.glue_forward`` and
+    ``glue_backward``), on [rays, samples, 3] points."""
     spec = P.SPECS[spec_name]
     x = P.points(case, spec, seed=7)
     x = x[: x.shape[0] // 4 * 4].reshape(4, -1, 3)
     ct = torch.randn((*x.shape[:-1], spec.output_dim),
                      generator=torch.Generator().manual_seed(8))
     table = _table(spec, 9)
-    routes, route = [], sg._kernel_route
-    for forced in (False, True):
-        seen = []
-        monkeypatch.setattr(sg, "_kernel_route",
-                            lambda *a: seen.append(route(*a)) or forced)
-        n0 = {k: _build.LAUNCHES[k] for k in NEW_COUNTS}
-        t = table.clone().requires_grad_(True)
-        out = sg.sorted_encode(x, t, spec, torch.bfloat16, True)
-        (out * ct).sum().backward()
-        assert seen == [False]
-        assert {k: _build.LAUNCHES[k] for k in NEW_COUNTS} == n0
-        assert out.shape == ct.shape
-        routes.append((out.detach(), t.grad))
-    assert torch.equal(routes[0][0], routes[1][0])
-    assert torch.equal(routes[0][1], routes[1][1])
+    calls = []
+    for name in SEQUENCE:
+        monkeypatch.setattr(sg, name, lambda *a, _n=name, _f=getattr(sg, name), **k:
+                            calls.append(_n) or _f(*a, **k))
+    n0 = {k: _build.LAUNCHES[k] for k in NEW_COUNTS}
+    t = table.clone().requires_grad_(True)
+    out = sg.sorted_encode(x, t, spec, torch.bfloat16, True)
+    (out * ct).sum().backward()
+    assert calls == list(SEQUENCE)
+    assert {k: _build.LAUNCHES[k] for k in NEW_COUNTS} == n0
+    assert out.shape == ct.shape
+    sk, perm, _, spf, _, ref = P.glue_forward(spec, x.reshape(-1, 3), table,
+                                              torch.bfloat16)
+    assert torch.equal(out.detach(), ref.reshape(out.shape))
+    ref_grad = P.glue_backward(spec, sk, perm, spf, ct.reshape(-1, spec.output_dim))
+    assert torch.equal(t.grad, ref_grad)
 
 
 # ---- the XOR path's index math (ops/hash_encoding.py::xor_index) ----
@@ -229,13 +220,13 @@ def test_xor_kernel_arithmetic_matches_the_pytorch_ops(spec_name, case):
 
 
 def _on_card(requires_grad=False):
-    """What the route reads of a CUDA tensor (no card here)."""
+    """A stand-in for a CUDA tensor (no card here)."""
     return types.SimpleNamespace(is_cuda=True, requires_grad=requires_grad)
 
 
 @pytest.mark.parametrize("spec,x,grad,expect", [
     (P.MAIN_SPEC, _on_card(), True, True),
-    (P.MAIN_SPEC, torch.zeros((4, 3)), True, False),
+    (P.MAIN_SPEC, torch.zeros((4, 3)), True, True),
     (he.HashGridSpec(input_dim=2), _on_card(), True, False),
     (he.HashGridSpec(num_levels=33), _on_card(), True, False),
     (P.MAIN_SPEC, _on_card(True), True, False),
@@ -243,9 +234,9 @@ def _on_card(requires_grad=False):
 ], ids=["card", "cpu", "input_dim_2", "33_levels", "grad_asked",
         "grad_asked_no_grad_mode"])
 def test_xor_kernel_route(spec, x, grad, expect):
-    """The kernel takes points on the card, D = 3, at most 32 levels, and
-    no gradient asked of the points (under grad mode); anything else takes
-    the PyTorch ops."""
+    """``xor_index`` takes D = 3, at most 32 levels, and no gradient asked
+    of the points (under grad mode), on either device (it runs its plain
+    version for CPU tensors); anything else takes the PyTorch ops."""
     with torch.set_grad_enabled(grad):
         assert he._xor_kernel_route(spec, x) is expect
 

@@ -19,15 +19,14 @@ from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
 
 SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "data", "smoke.pickle")
-# The main path's leaf host ranges in a step, repeats collapsed: the
-# positions go to sorted order before the span gather, the features back
-# after it.
-MAIN_PATH = ["batch", "sample", "encode.index", "encode.sort", "encode.permute",
-             "encode.gather", "encode.permute", "mlp", "render", "loss", "optim"]
-# The device ranges the main path's step marks, each once but one.
+# The main path's leaf host ranges in a step, repeats collapsed: the CPU
+# marks what the card marks, the span gather reading the positions through
+# the permutation and the feature unpack after it.
+MAIN_PATH = ["batch", "sample", "encode.index", "encode.sort", "encode.gather",
+             "encode.permute", "mlp", "render", "loss", "optim"]
+# The device ranges the main path's step marks, each once.
 MAIN_HITS = {r: 1 for r in profiling.RANGES
              if r not in ("encode", "backward.encode.sort", "step.io")}
-MAIN_HITS["encode.permute"] = 2
 # The device ranges the XOR path's step marks, each once, in step order.
 XOR_HITS = {r: 1 for r in ("batch", "sample", "encode.index", "encode.gather", "mlp",
                            "render", "loss", "backward.render", "backward.mlp",

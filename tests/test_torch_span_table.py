@@ -3,8 +3,8 @@
 rolled copy, and of the main path that now runs it.
 
 On the CPU the wrappers run their plain versions, so these tests hold the
-table mode's plain version, and ``sorted_encode`` routed through it,
-against the JAX package (its Pallas roll and span gather in interpret
+table mode's plain version, and ``sorted_encode`` (the point-order mode's
+plain version gathers through it), against the JAX package (its Pallas roll and span gather in interpret
 mode, as the JAX tests run them; ``log2_hashmap_size=14`` takes those
 paths) and against the rolled mode's plain version.  The kernel's two
 modes are held against each other on the card in ``test_torch_cuda.py``.
@@ -169,9 +169,11 @@ def test_sorted_encode_table_route_matches_jax(dtype, pack):
 
 @pytest.mark.parametrize("pack", [False, True], ids=["unpacked", "packed"])
 def test_sorted_encode_routes_table_mode(monkeypatch, pack):
-    """``sorted_encode`` builds no rolled table and gathers in table mode;
-    ``sorted_encode_features`` keeps the rolled route; both give the same
-    features."""
+    """``sorted_encode`` builds no rolled table and gathers from the
+    canonical table: in the point-order mode with packed positions (the
+    card's sequence, here through its plain version), in the table mode
+    with f32 positions; ``sorted_encode_features`` keeps the rolled route;
+    all give the same features."""
     calls = []
 
     def no_roll(*a, **k):
@@ -186,15 +188,18 @@ def test_sorted_encode_routes_table_mode(monkeypatch, pack):
     monkeypatch.setattr(trk, "roll_broadcast_fm", no_roll)
     monkeypatch.setattr(tsg, "span_gather_sorted_table",
                         spy("table", tsg.span_gather_sorted_table))
+    monkeypatch.setattr(tsg, "span_gather_point_order",
+                        spy("point_order", tsg.span_gather_point_order))
     monkeypatch.setattr(tsg, "span_gather_sorted",
                         spy("rolled", tsg.span_gather_sorted))
     x = torch.as_tensor(np.random.default_rng(42).uniform(0, 1, (900, 3)),
                         dtype=torch.float32)
     table = torch.as_tensor(TABLE3)
     out = tsg.sorted_encode(x, table, TS3, torch.bfloat16, pack)
-    assert calls == ["table"]
+    mode = "point_order" if pack else "table"
+    assert calls == [mode]
     base_t, frac_t = base_and_frac_t(TS3, x)
     rolled = trk.roll_broadcast_fm_plain(table, TS3, torch.bfloat16)
     feats = tsg.sorted_encode_features(base_t, frac_t, rolled, 3, pack=pack)
-    assert calls == ["table", "rolled"]
+    assert calls == [mode, "rolled"]
     assert torch.equal(out, feats)
