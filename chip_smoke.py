@@ -261,7 +261,8 @@ _SOURCE = {"roll_broadcast_fm": "roll_kernels", "unroll_reduce_fm": "roll_kernel
            "span_gather_sorted": "span_gather", "bucket_grad_matmul": "bucket_matmul",
            "scatter_level": "scatter_level", "encode_index": "encode_io",
            "unpack_feats_t": "encode_io", "transpose_grad_t": "encode_io",
-           "encode_grad_permute": "encode_io", "xor_index": "encode_io"}
+           "encode_grad_permute": "encode_io", "xor_index": "encode_io",
+           "xor_corner_sort": "corner_sort"}
 _TPU = "neuralvolumetricreconstructionformedicalimages_tpu/"
 _REPLACES = {"roll_broadcast_fm": _TPU + "ops/roll_kernels.py:152",
              "span_gather_sorted": _TPU + "ops/span_gather.py:282",
@@ -277,7 +278,9 @@ _REPLACES = {"roll_broadcast_fm": _TPU + "ops/roll_kernels.py:152",
              "encode_grad_permute": "no TPU kernel: PyTorch ops (ops/span_gather.py::"
                                     "unpack_frac_t, a gather of the gradient)",
              "xor_index": "no TPU kernel: PyTorch ops (ops/hash_encoding.py::"
-                          "_indices_weights_frac_plain)"}
+                          "_indices_weights_frac_plain)",
+             "xor_corner_sort": "no TPU kernel: torch.sort and a gather (ops/"
+                                "hash_encoding.py::sorted_corner_stream_plain)"}
 # Phase (f): the two shared-card ranks' group times out after this; the
 # parent kills them after PARALLEL_JOIN_S.
 PARALLEL_GROUP_TIMEOUT_S, PARALLEL_JOIN_S = 120, 300
@@ -287,7 +290,7 @@ MAIN_NEEDS = {"span_gather_sorted[table,point_order]": True, "encode_index": Tru
               "encode_grad_permute": True, "bucket_grad_matmul": True,
               "unroll_reduce_fm": True, "span_gather_sorted[table]": False,
               "span_gather_sorted": False, "roll_broadcast_fm": False,
-              "xor_index": False}
+              "xor_index": False, "xor_corner_sort": False}
 # The kernels of the main path's route around its sort
 ROUTE = ("span_gather_sorted[table,point_order]", "encode_index", "unpack_feats_t",
          "transpose_grad_t", "encode_grad_permute")
@@ -296,14 +299,15 @@ ROUTE = ("span_gather_sorted[table,point_order]", "encode_index", "unpack_feats_
 TRAIN_STEPS = 20
 PATHS = {
     "xor": ({"hash_variant": "xor"},
-            {"bucket_grad_matmul": True, "xor_index": True, "span_gather_sorted": False,
+            {"bucket_grad_matmul": True, "xor_index": True, "xor_corner_sort": True,
+             "span_gather_sorted": False,
              "span_gather_sorted[table]": False, "unroll_reduce_fm": False,
              "roll_broadcast_fm": False, **{k: False for k in ROUTE}}),
     "rolled": ({"forward": "rolled", "input_grads": True, "table_dtype": "bfloat16"},
                {"roll_broadcast_fm": True, "bucket_grad_matmul": True,
                 "unroll_reduce_fm": True, "span_gather_sorted": False,
                 "span_gather_sorted[table]": False, "xor_index": False,
-                **{k: False for k in ROUTE}}),
+                "xor_corner_sort": False, **{k: False for k in ROUTE}}),
     "take": ({"backward": "take"},
              {k: False for k in (*_SOURCE, "span_gather_sorted[table]", *ROUTE)}),
 }
@@ -392,6 +396,7 @@ def _launch_key(kernel: str):
                       ("transpose_grad_kernel", "transpose_grad_t"),
                       ("encode_grad_permute_kernel", "encode_grad_permute"),
                       ("xor_index_kernel", "xor_index"),
+                      ("corner_payload_kernel", "xor_corner_sort"),
                       ("bucket_kernel<", "bucket_grad_matmul"),
                       ("unroll_reduce_kernel<", "unroll_reduce_fm"),
                       ("roll_broadcast_kernel", "roll_broadcast_fm"),
@@ -1793,7 +1798,8 @@ def main() -> int:
     from neuralvolumetricreconstructionformedicalimages_torch.ops.coherent_hash import (
         corner_offsets)
     from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding import (
-        _indices_weights_frac_plain, hash_grid_indices, sorted_corner_stream, xor_index)
+        _indices_weights_frac_plain, hash_grid_indices, sorted_corner_stream,
+        sorted_corner_stream_plain, xor_index)
     from neuralvolumetricreconstructionformedicalimages_torch.train.trainer import (
         Trainer, build_model, pin_fp32)
     from neuralvolumetricreconstructionformedicalimages_torch.utils.profiling import (
@@ -1991,11 +1997,32 @@ def main() -> int:
     record("xor_index", 0.0, lambda: xor_index(spec, x01),
            lambda: _indices_weights_frac_plain(spec, x01), None,
            B * D * 4 + B * L * (K * 4 * 2 + D * 4), 0, plain_iters=3)
-    # bucket at D=0 on the XOR stream of the same points (the XOR backward)
+    # the XOR backward's corner sort on the same points: sk and sg
+    # torch.equal to its plain version
     xidx, xw = hash_grid_indices(spec, x01)
-    xsk, xsg = sorted_corner_stream(xidx, xw, grads.permute(2, 0, 1))
-    del xidx, xw
-    NX = xsk.shape[1]
+    xg = grads.permute(2, 0, 1)
+    xsk, xsg = sorted_corner_stream(xidx, xw, xg, S)
+    psk, psg = sorted_corner_stream_plain(xidx, xw, xg)
+    torch.cuda.synchronize()
+    if not (torch.equal(xsk, psk) and torch.equal(xsg, psg)):
+        raise AssertionError("sorted_corner_stream is not bit-equal to its plain version")
+    del psk, psg
+    # the library call: torch.sort of the transposed keys and the gather of
+    # a ready payload, the plain version's two calls
+    NX = B * K
+    xkeys = xidx.permute(1, 0, 2).reshape(L, NX)
+    xpay = (xw[..., None] * xg[:, :, None, :]).permute(1, 3, 0, 2).reshape(L, C, NX)
+
+    def sort_and_gather():
+        _, perm = torch.sort(xkeys, dim=-1, stable=True)
+        return torch.gather(xpay, 2, perm[:, None, :].expand(L, C, NX))
+
+    # bound: idx, w and g read once, sk and sg written once
+    record("xor_corner_sort", 0.0, lambda: sorted_corner_stream(xidx, xw, xg, S),
+           lambda: sorted_corner_stream_plain(xidx, xw, xg), sort_and_gather,
+           B * L * (K * 4 * 2 + C * 4) + L * NX * (4 + C * 4), 0, plain_iters=3)
+    del xidx, xw, xg, xkeys, xpay
+    # bucket at D=0 on that stream (the XOR backward)
     xsf = torch.empty((L, 0, NX), device=dev)
     kw0 = dict(table_size=S, input_dim=0)
     x1 = bm.bucket_grad_matmul(xsk, xsf, xsg, **kw0)
@@ -2192,6 +2219,7 @@ def main() -> int:
             results["roll_broadcast_fm"]["launches"] = int(plaunch["roll_broadcast_fm"])
         if pname == "xor":
             results["xor_index"]["launches"] = int(plaunch["xor_index"])
+            results["xor_corner_sort"]["launches"] = int(plaunch["xor_corner_sort"])
         del tr
         torch.cuda.empty_cache()
 

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("roll_kernels", "span_gather", "bucket_matmul", "scatter_level", "range_mark",
-           "encode_io")
+           "encode_io", "corner_sort")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -54,6 +54,8 @@ ENTRIES: Dict[str, Tuple[str, list]] = {
     "nvr_unpack_feats": ("encode_io", [_P] * 2 + [_I, _L, _P]),
     "nvr_transpose_grad": ("encode_io", [_P] * 2 + [_I, _L, _P]),
     "nvr_xor_index": ("encode_io", [_P] * 7 + [_I, _L, _L, _P]),
+    "nvr_corner_sort_scratch": ("corner_sort", [_L, _I, _I, _P, _P]),
+    "nvr_corner_sort": ("corner_sort", [_P] * 6 + [_L, _P, _I, _L, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -11,9 +11,11 @@ Port of the JAX ``ops/hash_encoding.py``:
 - :func:`hash_encode`: the plain gather + weighted sum (autograd's scatter
   is its backward);
 - :func:`hash_encode_fast`: the same forward, with the table gradient from
-  a stable sort of the corner-expanded update stream and the bucket kernel
-  at ``input_dim=0`` (deterministic, no atomics), and analytic position
-  gradients.
+  a stable sort of the corner-expanded update stream
+  (:func:`sorted_corner_stream`; on the card one radix sort of the whole
+  stream between two kernels, ``csrc/corner_sort.cu``) and the bucket
+  kernel at ``input_dim=0`` (deterministic, no atomics), and analytic
+  position gradients.
 
 Integer exactness: JAX multiplies and XORs in int32 with wraparound.  On
 the CPU the products are taken in int64 (primes and strides as their
@@ -25,6 +27,7 @@ bit.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional
@@ -242,14 +245,85 @@ def hash_encode(x01: torch.Tensor, table: torch.Tensor,
     return _he_forward(x01, table, spec)[0]
 
 
-def sorted_corner_stream(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+def sorted_corner_stream(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                         table_size: Optional[int] = None):
     """The XOR backward's update stream, sorted per level.
 
-    Element (b, l, k) has key ``idx[b, l, k]`` and payload lane c =
-    ``w[b, l, k] * g[b, l, c]``.  Returns the keys [L, B*K] int32 sorted
-    stably (ties keep stream order) and the payload [L, C, B*K] f32 in
-    that order, both contiguous.
+    Element (b, l, k) has key ``idx[b, l, k]`` (a row below ``table_size``)
+    and payload lane c = ``w[b, l, k] * g[b, l, c]``.  Returns the keys [L,
+    B*K] int32 sorted stably (ties keep stream order) and the payload [L, C,
+    B*K] f32 in that order, both contiguous.  On the card one sort of the
+    whole stream by (level, row) between two kernels
+    (``csrc/corner_sort.cu``), bit-equal to the plain version and counted
+    in ``LAUNCHES["xor_corner_sort"]``; it needs ``table_size``, a power of
+    two, for the level's place in the key, at most 32 levels and C = 2.  sk
+    and sg are views of one buffer there, which lives while either does.
+    The plain version for CPU tensors.
     """
+    if _build.is_cpu(idx, w, g):
+        return sorted_corner_stream_plain(idx, w, g)
+    _check_corner_sort(idx, w, g, table_size)
+    B, L, K = idx.shape
+    n, sbits, dev = L * B * K, table_size.bit_length() - 1, idx.device
+    idx, w, g = idx.contiguous(), w.contiguous(), g.contiguous()
+    # the sort's keys, values, other keys and other values; two of them end
+    # as sk, the other two as sg
+    buf = torch.empty((4, n), dtype=torch.int32, device=dev)
+    pay = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    temp = torch.empty(_corner_sort_scratch(n, L, sbits, dev), dtype=torch.uint8,
+                       device=dev)
+    selector = ctypes.c_int(0)
+    _build.LAUNCHES["xor_corner_sort"] += 1
+    _build.launch("nvr_corner_sort", dev, idx.data_ptr(), w.data_ptr(), g.data_ptr(),
+                  buf.data_ptr(), pay.data_ptr(), temp.data_ptr(), temp.numel(),
+                  ctypes.addressof(selector), L, B, sbits)
+    s = 2 * selector.value
+    sk = buf[s].view(L, B * K)
+    sg = buf[2 - s:4 - s].view(torch.float32).view(L, 2, B * K)
+    return sk, sg
+
+
+def _check_corner_sort(idx, w, g, table_size) -> None:
+    """The argument checks of :func:`sorted_corner_stream` on the card
+    (raise ``ValueError``): idx [B, L, 8] int32 with at most 32 levels, as
+    ``xor_index`` takes, w [B, L, 8] f32, g [B, L, 2] f32 (C = 2, as the
+    sorted encoder's kernels take), a power-of-two ``table_size`` whose
+    key, ceil(log2 L) level bits above log2 ``table_size`` row bits, fits
+    31 bits, and fewer than 2^31 stream entries."""
+    _build.require(idx.dim() == 3 and idx.shape[2] == 8,
+                   f"the corner sort takes idx [B, L, 8], got {tuple(idx.shape)}")
+    B, L, K = idx.shape
+    _build.require(L <= 32, f"the corner sort takes at most 32 levels, got {L}")
+    _build.require(idx.dtype == torch.int32,
+                   f"the corner sort takes int32 idx, got {idx.dtype}")
+    _build.require(w.dtype == torch.float32 and g.dtype == torch.float32,
+                   f"the corner sort takes f32 w and g, got {w.dtype} and {g.dtype}")
+    _build.require(tuple(w.shape) == (B, L, K) and tuple(g.shape) == (B, L, 2),
+                   f"the corner sort takes w [B, L, 8] and g [B, L, 2] for idx "
+                   f"{tuple(idx.shape)}, got {tuple(w.shape)} and {tuple(g.shape)}")
+    _build.require(isinstance(table_size, int) and table_size > 1
+                   and table_size & (table_size - 1) == 0,
+                   f"the corner sort takes a power-of-two table_size, got {table_size!r}")
+    bits = (L - 1).bit_length() + table_size.bit_length() - 1
+    _build.require(bits <= 31, f"the corner sort's keys take ceil(log2 L) + log2 S "
+                               f"<= 31 bits, got {bits} (L = {L}, S = {table_size})")
+    _build.require(L * B * K < 2 ** 31,
+                   f"the corner sort takes fewer than 2^31 entries, got {L * B * K}")
+
+
+@functools.lru_cache(maxsize=None)
+def _corner_sort_scratch(n: int, L: int, sbits: int, device: torch.device) -> int:
+    """Bytes of the corner sort's scratch for ``n`` entries (cub's own
+    query), asked once per shape and device."""
+    out = torch.zeros(1, dtype=torch.int64)
+    _build.launch("nvr_corner_sort_scratch", device, n, L, sbits, out.data_ptr())
+    return int(out)
+
+
+def sorted_corner_stream_plain(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """Plain version of :func:`sorted_corner_stream`, any K and C: a stable
+    ``torch.sort`` of each level's keys and the payload gathered through
+    its positions."""
     B, L, K = idx.shape
     C = g.shape[-1]
     N = B * K
@@ -284,7 +358,7 @@ class _HashEncodeFast(torch.autograd.Function):
 
         # Table gradient: the corner-expanded stream, sorted per level and
         # summed by the bucket kernel with weight 1 (w is in the payload).
-        sk, sg = sorted_corner_stream(idx, w, g)                   # [L, B*K]
+        sk, sg = sorted_corner_stream(idx, w, g, S)                # [L, B*K]
         range_mark("backward.encode.bucket")
         sf = torch.empty((L, 0, B * K), dtype=torch.float32, device=g.device)
         grad_flat = bucket_grad_matmul(sk, sf, sg, table_size=S,

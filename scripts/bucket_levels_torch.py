@@ -72,7 +72,7 @@ def streams(cfg_path: str, dev: torch.device):
     spf = torch.gather(sg.pack_frac_t(frac_t), 1, perm)[:, None, :].contiguous()
     sf = sg.unpack_frac_t(spf[:, 0])
     xidx, xw = hash_grid_indices(spec, x01)
-    xsk, xsg = sorted_corner_stream(xidx, xw, grads.permute(2, 0, 1))
+    xsk, xsg = sorted_corner_stream(xidx, xw, grads.permute(2, 0, 1), S)
     xsf = torch.empty((L, 0, xsk.shape[1]), device=dev)
     return spec, {"main": (sk, sf, grads, spec.input_dim, _PAD),
                   "xor": (xsk, xsf, xsg, 0, 0)}

@@ -7,7 +7,9 @@ points at and next to cell edges (where a fused multiply-add would move
 kernels' 256-thread block; for the XOR path's index kernel also the cube's
 corners and faces approached from inside.  Also the PyTorch ops that
 those kernels replace (:func:`glue_forward`, :func:`glue_backward`), the
-reference ``sorted_encode`` is held to on both devices.  Imports no JAX."""
+reference ``sorted_encode`` is held to on both devices, and the XOR
+backward's corner streams (:func:`corner_stream`) for its corner sort
+(``ops/hash_encoding.py::sorted_corner_stream``).  Imports no JAX."""
 
 import numpy as np
 import torch
@@ -106,3 +108,36 @@ def glue_backward(spec: HashGridSpec, sk: torch.Tensor, perm: torch.Tensor,
     grad_rolled = bucket_grad_matmul(sk, sf, sgr, table_size=spec.table_size,
                                      input_dim=spec.input_dim, extend_cols=_PAD)
     return unroll_reduce_fm(grad_rolled, spec, 2)
+
+
+# The XOR backward's corner streams (idx, w, g) of the corner sort: uniform
+# points; few distinct points repeated; every entry of level 5 in one row;
+# a grid whose levels are all dense (the coarsest with 5^3 rows, long
+# runs); rows 0 and S - 1 alone; and 1,027 points (N = 8,216 entries a
+# level, not a multiple of the kernels' 256-thread block).
+CORNER_CASES = ("uniform", "duplicate_heavy", "one_row", "dense_coarse", "row_edges",
+                "ragged")
+
+
+def corner_stream(case: str, seed: int = 0, n: int = 512):
+    """(spec, idx [B, L, 8] int32, w [B, L, 8] f32, g [B, L, 2] f32) on the
+    CPU for one of ``CORNER_CASES``; g is a strided view of a [2, L, B]
+    array, as the smoke script and the bucket script pass it."""
+    from neuralvolumetricreconstructionformedicalimages_torch.ops.hash_encoding import (
+        _indices_weights_frac_plain)
+
+    rng = np.random.default_rng(seed)
+    spec = SPECS["dense"] if case == "dense_coarse" else MAIN_SPEC
+    if case == "duplicate_heavy":
+        x = rng.uniform(0, 1, (5, 3))[rng.integers(0, 5, n)]
+    else:
+        x = rng.uniform(0, 1, (1027 if case == "ragged" else n, 3))
+    idx, w, _ = _indices_weights_frac_plain(spec, torch.as_tensor(x, dtype=torch.float32))
+    if case == "one_row":
+        idx[:, 5, :] = 12345
+    elif case == "row_edges":
+        edges = np.array([0, spec.table_size - 1], np.int32)
+        idx = torch.as_tensor(edges[rng.integers(0, 2, tuple(idx.shape))])
+    g = torch.as_tensor(rng.standard_normal((2, spec.num_levels, idx.shape[0])),
+                        dtype=torch.float32).permute(2, 1, 0)
+    return spec, idx, w, g

@@ -15,8 +15,8 @@ the same arithmetic (bit-equal to it and to its plain version); the
 sorted encoder's index kernel, the span gather's point-order mode, the
 feature unpack, the gradient transpose and the gradient-permute kernel are
 bit-equal to their plain versions and to the PyTorch ops they replace, and ``sorted_encode`` through them to
-those ops; so is the XOR path's index kernel, and ``hash_encode_fast``
-through it equals its PyTorch route;
+those ops; so are the XOR path's index kernel and its corner sort, and
+``hash_encode_fast`` through each equals its PyTorch route;
 the bucket sum is bitwise reproducible run to run, and equals the plain
 version bit for bit (both sum every run in stream order from the same f32
 products); the scatter adds each row's updates in stream order, as
@@ -583,6 +583,67 @@ def test_prod_of_three_groups_as_the_xor_kernel(dev):
     assert not torch.equal(p, (t[..., 0] * t[..., 1]) * t[..., 2])
 
 
+# ---- the XOR backward's corner sort (ops/hash_encoding.py::
+# sorted_corner_stream) ----
+
+# the streams of tests/_encode_points.py::corner_stream, and the cell's
+# (NAF's grid, B = 196,608 uniform points, 23-bit keys)
+_CORNER = (*P.CORNER_CASES, "chest")
+
+
+def _corner_inputs(dev, case, seed):
+    """(spec, idx, w, g) of one ``_CORNER`` case on the card; g strided but
+    at the cell's shape, where it is contiguous, as the backward passes it."""
+    if case == "chest":
+        spec, x = _xor_inputs("main", "chest", seed)
+        idx, w, _ = he.xor_index(spec, x.to(dev))
+        g = torch.randn((x.shape[0], spec.num_levels, 2), generator=_gen(dev, seed),
+                        device=dev)
+        return spec, idx, w, g
+    spec, idx, w, g = P.corner_stream(case, seed)
+    return spec, idx.to(dev), w.to(dev), g.to(dev)
+
+
+@pytest.mark.parametrize("case", _CORNER)
+def test_corner_sort_kernel(dev, case):
+    """sk and sg ``torch.equal`` to ``sorted_corner_stream_plain`` on the
+    card (the rows ascending per level, ties in stream order, the payload
+    the same f32 products); one launch of ``xor_corner_sort`` a call."""
+    spec, idx, w, g = _corner_inputs(dev, case, 66)
+    n0 = _build.LAUNCHES["xor_corner_sort"]
+    ksk, ksg = he.sorted_corner_stream(idx, w, g, spec.table_size)
+    assert _build.LAUNCHES["xor_corner_sort"] == n0 + 1
+    psk, psg = he.sorted_corner_stream_plain(idx, w, g)
+    assert ksk.dtype == torch.int32 and ksg.dtype == torch.float32
+    assert ksk.is_contiguous() and ksg.is_contiguous()
+    assert torch.equal(ksk, psk) and torch.equal(ksg, psg)
+
+
+@pytest.mark.parametrize("spec_name,case", [("main", "chest"), ("hashed", "cell_edges")],
+                         ids=["chest", "hashed-cell_edges"])
+def test_hash_encode_fast_corner_sort_equals_plain(dev, monkeypatch, spec_name, case):
+    """``hash_encode_fast``'s table gradient through the corner sort's
+    kernels and through its plain version (forced): ``torch.equal``; one
+    ``xor_corner_sort`` launch a backward on the kernel route, none on the
+    other."""
+    spec, x = _xor_inputs(spec_name, case, 67)
+    x = x.to(dev)
+    table = torch.randn((spec.num_levels, spec.table_size, 2), generator=_gen(dev, 68),
+                        device=dev)
+    ct = torch.randn((x.shape[0], spec.output_dim), generator=_gen(dev, 69), device=dev)
+    grads = []
+    for kernels in (True, False):
+        if not kernels:
+            monkeypatch.setattr(he, "sorted_corner_stream",
+                                lambda i, w, g, S: he.sorted_corner_stream_plain(i, w, g))
+        n0 = _build.LAUNCHES["xor_corner_sort"]
+        t = table.clone().requires_grad_(True)
+        (he.hash_encode_fast(x, t, spec) * ct).sum().backward()
+        assert _build.LAUNCHES["xor_corner_sort"] == n0 + int(kernels)
+        grads.append(t.grad)
+    assert torch.equal(*grads)
+
+
 @pytest.mark.parametrize("spec_name,case", [("main", "chest"), ("hashed", "cell_edges")],
                          ids=["chest", "hashed-cell_edges"])
 def test_hash_encode_fast_kernel_route_equals_plain_route(dev, monkeypatch, spec_name,
@@ -925,14 +986,17 @@ _GRAPH_PATHS = {
                     "transpose_grad_t": True, "encode_grad_permute": True,
                     "bucket_grad_matmul": True, "unroll_reduce_fm": True,
                     "span_gather_sorted[table]": False, "span_gather_sorted": False,
-                    "roll_broadcast_fm": False, "xor_index": False}),
+                    "roll_broadcast_fm": False, "xor_index": False,
+                    "xor_corner_sort": False}),
     "rolled": ({"forward": "rolled", "input_grads": True},
                {"roll_broadcast_fm": True, "bucket_grad_matmul": True,
                 "unroll_reduce_fm": True, "span_gather_sorted[table]": False,
-                "xor_index": False, **{k: False for k in _ROUTE_COUNTS}}),
+                "xor_index": False, "xor_corner_sort": False,
+                **{k: False for k in _ROUTE_COUNTS}}),
     "xor": ({"hash_variant": "xor"},
-            {"bucket_grad_matmul": True, "xor_index": True, "unroll_reduce_fm": False,
-             "span_gather_sorted[table]": False, **{k: False for k in _ROUTE_COUNTS}}),
+            {"bucket_grad_matmul": True, "xor_index": True, "xor_corner_sort": True,
+             "unroll_reduce_fm": False, "span_gather_sorted[table]": False,
+             **{k: False for k in _ROUTE_COUNTS}}),
 }
 
 
@@ -1318,8 +1382,8 @@ def test_marked_twin_launches_marks_only_when_asked(dev):
 
 def test_xor_marked_twin_marks_its_encoder(dev):
     """The XOR path's marked twin launches one mark a leaf range and the
-    end mark, and one bucket kernel and one ``xor_index`` kernel, as its
-    plain graph does; its replays charge each of its ranges once a step,
+    end mark, and one bucket kernel, one ``xor_index`` kernel and one
+    corner sort, as its plain graph does; its replays charge each of its ranges once a step,
     ``encode.index`` (the kernel) with time, and ``encode`` never."""
     from neuralvolumetricreconstructionformedicalimages_torch.utils import profiling
 
@@ -1333,6 +1397,8 @@ def test_xor_marked_twin_marks_its_encoder(dev):
     assert graphed.twin_launches["bucket_grad_matmul"] == 1
     assert graphed.launches["bucket_grad_matmul"] == 1
     assert graphed.twin_launches["xor_index"] == graphed.launches["xor_index"] == 1
+    assert graphed.twin_launches["xor_corner_sort"] == \
+        graphed.launches["xor_corner_sort"] == 1
     epoch_fn(arrays, order[1:2], 1)                  # plain: the next marked replay resets
     with profiling.ranges():
         epoch_fn(arrays, order[2:5], 2)
